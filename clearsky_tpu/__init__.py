@@ -1,4 +1,4 @@
-"""clearsky_tpu — a TPU-native line-by-line clear-sky radiative transfer framework.
+"""clearsky_tpu — a line-by-line clear-sky radiative transfer framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the full capability surface of the
 reference clear-sky framework (ClearSky.jl): HITRAN line-catalog and CIA
@@ -6,8 +6,9 @@ ingestion, TIPS-scaled Voigt/Lorentz/Doppler/sub-Lorentzian opacities, baked
 Chebyshev opacity tables or direct line-by-line evaluation, a discretized
 Schwarzschild flux core with hemispheric stream quadrature, adiabats and
 hydrostatics, a radiative-convective model, orbital mechanics and insolation —
-all built array-first for the MXU/VPU, with wavenumber-mesh sharding for
-multi-chip scale (see ``clearsky_tpu.parallel``).
+all built array-first for an accelerator (an NVIDIA GPU; the CPU runs the
+plain paths), with wavenumber-mesh sharding for multi-device scale (see
+``clearsky_tpu.parallel``).
 """
 
 from . import constants
@@ -61,6 +62,7 @@ from .ops.lineshape import (
 )
 from .ops.linesum import build_line_window_plan, sigma_from_lines
 from .spectra.par import read_par
+from .spectra.synthetic import synthetic_lines
 from .spectra.lines import SpectralLines
 from .spectra.molparam import molparam
 from .absorption.domain import AtmosphericDomain
@@ -99,12 +101,7 @@ from .atmosphere.saturation import (
     haircut,
     rayleigh_co2,
 )
-from .rt.discretized import FluxPack, march_kernel_mode, march_gspmd
-from .rt.fused_table import (
-    table_olr_fused,
-    table_monoflux_fused,
-    fused_table_applicable,
-)
+from .rt.discretized import FluxPack
 from .rt.fluxes import (
     Discretized,
     Radau,

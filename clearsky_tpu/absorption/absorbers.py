@@ -1,6 +1,6 @@
 """Consolidated absorbers: the unified stack and the accelerated column cache.
 
-TPU-native re-design of ClearSky.jl ``src/absorbers.jl``. The reference's
+Array-first re-design of ClearSky.jl ``src/absorbers.jl``. The reference's
 ``UnifiedAbsorber`` funnels every flux evaluation through a scalar accessor
 ``Σ(𝒜, i, T, P)`` (ref absorbers.jl:84-95) — one cross-section at a time.
 Here the access pattern is inverted: an :class:`AbsorberStack` produces dense

@@ -1,12 +1,12 @@
 """Collision-induced absorption (CIA): HITRAN ``.cia`` ingestion and evaluation.
 
-TPU-native equivalent of ClearSky.jl ``src/absorption/collision_induced_absorption.jl``.
+Array-first equivalent of ClearSky.jl ``src/absorption/collision_induced_absorption.jl``.
 The reference wraps each (wavenumber-range, temperature) grid in a bilinear
 interpolator of log k and sums ranges per scalar query. Here ingestion happens
 host-side once, log k is resampled onto the model's *static* wavenumber grid
 at bind time (linear in nu — identical to the reference's bilinear order), and
 runtime evaluation reduces to a 1-D temperature interpolation per range: pure
-dense VPU work over the whole spectrum at once.
+dense elementwise work over the whole spectrum at once.
 
 The cross-section conversion follows the reference's *correct* code path
 (the CIA-object path, ref :378-382 -> :318-323 -> :295-303). The reference's
@@ -253,7 +253,7 @@ def cia_xsec(k, T, Pa, P1, P2):
     rho2 = (P2 / P_ATM) * (T_ICE / T)
     rho_a = 1e-6 * Pa / (K_BOLTZ * T)
     # float32-safe ordering: Lo^2 = 7.2e38 overflows f32 (max 3.4e38), which
-    # NaN'd the whole CIA path on TPU; k*Lo (~1e-26) and Lo/rho_a (~1e-6 at
+    # NaN'd the whole CIA path in float32; k*Lo (~1e-26) and Lo/rho_a (~1e-6 at
     # surface conditions) are both representable, so apply Lo twice
     return ((k * LOSCHMIDT) * (LOSCHMIDT / rho_a)) * rho1 * rho2
 

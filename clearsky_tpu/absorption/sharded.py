@@ -2,8 +2,8 @@
 
 The reference threads real-gas flux solves over the wavenumber axis
 (ClearSky.jl ``fluxes.jl:270`` with the moving line window
-``line_shapes.jl:10-22``); the TPU equivalent shards the wavenumber grid in
-contiguous blocks across chips. Because the line window couples each grid
+``line_shapes.jl:10-22``); the accelerator equivalent shards the wavenumber
+grid in contiguous blocks across devices. Because the line window couples each grid
 point to lines within ``cut`` of it, a shard's line set is the compact slab
 ``[nu_shard_min - cut, nu_shard_max + cut]`` — the halo is folded into
 overlapping *static* slabs at construction time, so the sharded evaluation
@@ -37,13 +37,14 @@ from ..ops.linesum import (
     DeviceWindowPlan,
     build_line_window_plan,
     sigma_from_lines_auto_device,
+    split_f64,
 )
 from ..spectra.lines import SpectralLines, PER_LINE_FIELDS
 from .gas import AbstractGas, DirectGas, MultiGas
 
 __all__ = ["ShardedLineGas", "shard_line_gas"]
 
-_PAD = 128  # line-slab length alignment (the Pallas kernel's CHUNK)
+_PAD = 128  # line-slab length alignment
 
 _LINE_FIELDS = PER_LINE_FIELDS  # canonical list lives on spectra.lines
 # inert padding: far-away position (window mask kills it), zero strength,
@@ -62,19 +63,12 @@ def _slice_lines(lines: SpectralLines, s) -> SpectralLines:
 
 
 def _slice_plan(plans: DeviceWindowPlan, s) -> DeviceWindowPlan:
-    def opt(x):
-        return None if x is None else x[s]
-
     return dataclasses.replace(
         plans,
         nu_blocks=plans.nu_blocks[s],
         nu_blocks_lo=plans.nu_blocks_lo[s],
         start=plans.start[s],
         count=plans.count[s],
-        fine_blocks=opt(plans.fine_blocks),
-        fine_blocks_lo=opt(plans.fine_blocks_lo),
-        coarse_blocks=opt(plans.coarse_blocks),
-        coarse_blocks_lo=opt(plans.coarse_blocks_lo),
     )
 
 
@@ -103,7 +97,6 @@ class ShardedLineGas(AbstractGas):
     formula: str = dataclasses.field(metadata=dict(static=True), default="")
     mu: float = dataclasses.field(metadata=dict(static=True), default=float("nan"))
     n_shards: int = dataclasses.field(metadata=dict(static=True), default=1)
-    strategy: str = dataclasses.field(metadata=dict(static=True), default="auto")
 
     @property
     def k_local(self) -> int:
@@ -143,7 +136,6 @@ class ShardedLineGas(AbstractGas):
                 _slice_lines(self.lines, s),
                 T, P, Pp, self.shape,
                 conc=self._conc_local(s, T, P),
-                strategy=self.strategy,
             )
             outs.append(sig)
         return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-1)
@@ -185,19 +177,12 @@ class ShardedLineGas(AbstractGas):
             **{f: stacked(getattr(self.lines, f)) for f in _LINE_FIELDS},
             tips_coeffs=P(),
         )
-        def opt3(x):
-            return None if x is None else P("nu", None, None)
-
         plans_spec = dataclasses.replace(
             self.plans,
             nu_blocks=P("nu", None, None),
             nu_blocks_lo=P("nu", None, None),
             start=P("nu", None),
             count=P("nu", None),
-            fine_blocks=opt3(self.plans.fine_blocks),
-            fine_blocks_lo=opt3(self.plans.fine_blocks_lo),
-            coarse_blocks=opt3(self.plans.coarse_blocks),
-            coarse_blocks_lo=opt3(self.plans.coarse_blocks_lo),
         )
         return dataclasses.replace(
             self,
@@ -234,7 +219,7 @@ def shard_line_gas(gas, n_shards: int, block: int | None = None) -> ShardedLineG
     if not isinstance(gas, (DirectGas, MultiGas)):
         raise TypeError("shard_line_gas requires a DirectGas or MultiGas")
     # rebuild from the PLAN's grid, not gas.nu: the device array is f32 when
-    # x64 is off (always on TPU), and f32-rounded block positions (~5e-4
+    # x64 is off (as on the GPU), and f32-rounded block positions (~5e-4
     # cm^-1 at 1e4 cm^-1) shift the per-shard plans' two-float block centers
     # off the static plan's — flipping line membership at the |dnu| = cut
     # boundary and biasing deep-wing sigma by O(10%) of its (tiny) value. The
@@ -251,29 +236,11 @@ def shard_line_gas(gas, n_shards: int, block: int | None = None) -> ShardedLineG
     lines = gas.lines
     nu_l = np.asarray(lines.nu, np.float64)
 
-    # coarse-far sizing first (grid geometry only): when the split engages,
-    # its per-shard coarse grid extends 2h beyond the shard edges for the
-    # cubic stencil, so the slab halo must widen accordingly — boundary
-    # coarse points otherwise miss lines in (cut, cut+2h] of themselves
-    from ..ops.linesum_pallas import _coarse_far_params, _fine_block
-
-    shard_plan0 = build_line_window_plan(
-        nu[: n_nu // n_shards], nu_l, cut, block=block)
-    # auto-routing eligibility mirrors the static wrapper's stricter bound;
-    # when it holds, the EXECUTED params are the 0.2-accepted ones (so the
-    # kernel runs the Q that justified the route — review finding)
-    cmeta02 = _coarse_far_params(shard_plan0, frac_limit=0.2)
-    cmeta = cmeta02 if cmeta02 is not None else _coarse_far_params(shard_plan0)
-    if cmeta is not None and cmeta[3] < 2:
-        cmeta = None
-    cauto = cmeta is not None and cmeta02 is not None
-    halo = cut + (4.0 * cmeta[1] if cmeta is not None else 0.0)
-
     bounds, plans = [], []
     for s in range(n_shards):
         nus = nu[s * n_local : (s + 1) * n_local]
-        a = int(np.searchsorted(nu_l, nus[0] - halo, side="left"))
-        b = int(np.searchsorted(nu_l, nus[-1] + halo, side="right"))
+        a = int(np.searchsorted(nu_l, nus[0] - cut, side="left"))
+        b = int(np.searchsorted(nu_l, nus[-1] + cut, side="right"))
         # lineless shards (grid extending > cut beyond the catalog) keep one
         # count-masked line for static shapes; clamp a BEFORE widening b so a
         # shard above the whole catalog (a == b == n_lines) stays in range
@@ -287,44 +254,10 @@ def shard_line_gas(gas, n_shards: int, block: int | None = None) -> ShardedLineG
     slab = max(p.slab for p in plans)
     nb, B = plans[0].n_blocks, plans[0].block
 
-    # coarse-far split artifacts (ops.linesum_pallas), prebuilt per shard
-    # where the static geometry accepted above: each shard's fine grid
-    # re-blocked at the shape's fine block width plus a shard-local coarse
-    # grid whose origin sits exactly 2h below the shard's first point (the
-    # strided interpolation stencil relies on that alignment). Sizing is by
-    # grid geometry only, so one sizing (shard 0) covers all shards.
-    fb_hi = fb_lo = cb_hi = cb_lo = None
-    if cmeta is not None:
-        d_farC, hC, n_ccC, _c = cmeta
-        Bf = _fine_block(gas.shape, n_local, B)
-        n_bf = -(-n_local // Bf)
-        n_bc = -(-n_ccC // B)
-        fb64 = np.empty((n_shards, n_bf, Bf))
-        cb64 = np.empty((n_shards, n_bc, B))
-        for s in range(n_shards):
-            nus = nu[s * n_local : (s + 1) * n_local]
-            fb64[s] = np.concatenate(
-                [nus, np.full(n_bf * Bf - n_local, nus[-1])]
-            ).reshape(n_bf, Bf)
-            cps = (nus[0] - 2.0 * hC) + np.arange(n_ccC) * hC
-            cb64[s] = np.concatenate(
-                [cps, np.full(n_bc * B - n_ccC, cps[-1])]
-            ).reshape(n_bc, B)
-
-        def two_float(x64):
-            hi = x64.astype(np.float32)
-            return jnp.asarray(hi), jnp.asarray(
-                (x64 - hi.astype(np.float64)).astype(np.float32)
-            )
-
-        fb_hi, fb_lo = two_float(fb64)
-        cb_hi, cb_lo = two_float(cb64)
-
     nb64 = np.stack([np.asarray(p.nu_blocks, np.float64) for p in plans])
-    nb_hi = nb64.astype(np.float32)
     dplans = DeviceWindowPlan(
         nu_blocks=jnp.asarray(nb64),
-        nu_blocks_lo=jnp.asarray((nb64 - nb_hi.astype(np.float64)).astype(np.float32)),
+        nu_blocks_lo=jnp.asarray(split_f64(nb64)[1]),
         start=jnp.asarray(np.stack([p.start for p in plans]), jnp.int32),
         count=jnp.asarray(np.stack([p.count for p in plans]), jnp.int32),
         cut=cut,
@@ -332,12 +265,6 @@ def shard_line_gas(gas, n_shards: int, block: int | None = None) -> ShardedLineG
         n_blocks=nb,
         slab=int(slab),
         n_nu=n_local,
-        fine_blocks=fb_hi,
-        fine_blocks_lo=fb_lo,
-        coarse_blocks=cb_hi,
-        coarse_blocks_lo=cb_lo,
-        coarse_meta=cmeta,
-        coarse_auto=cauto,
     )
 
     def stack_field(name):
@@ -373,5 +300,4 @@ def shard_line_gas(gas, n_shards: int, block: int | None = None) -> ShardedLineG
         formula=gas.formula,
         mu=gas.mu,
         n_shards=n_shards,
-        strategy=getattr(gas, "strategy", "auto"),
     )

@@ -1,6 +1,6 @@
 """Adiabatic temperature profiles: dry (closed form) and moist (integrated).
 
-TPU-native equivalent of ClearSky.jl ``atmospherics.jl:178-514``. The moist
+Array-first equivalent of ClearSky.jl ``atmospherics.jl:178-514``. The moist
 adiabat integrates the single-condensible lapse equation on a fixed dense grid
 in omega = -sqrt(P) coordinates host-side (RK4, replacing the reference's
 adaptive Radau — ref atmospherics.jl:441) and evaluates by linear

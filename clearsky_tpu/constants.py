@@ -1,6 +1,6 @@
 """Physical constants.
 
-TPU-native re-implementation of the constants in the reference framework
+Array-first re-implementation of the constants in the reference framework
 (ClearSky.jl, ``src/constants.jl:1-27``). Values are identical CODATA numbers;
 names are ASCII equivalents of the reference's Unicode symbols.
 """
@@ -27,7 +27,7 @@ G_GRAV = 6.6743e-11
 LOSCHMIDT_SQ = 7.21879268e38
 # Loschmidt number [molecules/cm^3 at 1 amagat] — kept separately because
 # LOSCHMIDT_SQ (7.2e38) exceeds float32 max (3.4e38): f32 compute paths (the
-# TPU) must multiply by LOSCHMIDT twice instead of by the squared constant
+# GPU) must multiply by LOSCHMIDT twice instead of by the squared constant
 # once (see absorption.cia.cia_xsec)
 LOSCHMIDT = 2.686781e19
 

@@ -1,6 +1,6 @@
 """Radiative-convective model: the time-stepping column model.
 
-TPU-native re-design of ClearSky.jl ``src/radiative_convective.jl``. The
+Array-first re-design of ClearSky.jl ``src/radiative_convective.jl``. The
 reference mutates an RCM struct in place (``heating!``/``step!``/``jacobian!``);
 here the model is a frozen pytree and every operation is a pure function —
 ``heating`` jits to a single fused device program over the whole spectrum,
@@ -201,9 +201,8 @@ def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
             nstream=core.nstream, tol=core.tol, max_steps=core.max_steps,
         )
         return tau, M_up, M_down
-    # FLAT node evaluation + block-diagonal quadrature matmul: the 3-D
-    # [np-1, nlobatto, n_nu] sigma shape forces a physical sublane
-    # re-tiling on TPU (see rt.discretized.layer_tau_flat)
+    # FLAT node evaluation + block-diagonal quadrature matmul (see
+    # rt.discretized.layer_tau_flat)
     Pn = lobatto_pressures(rcm.Pr, core.nlobatto)
     Pf = Pn.reshape(-1)
     Tf = fT(Pf)
@@ -273,8 +272,8 @@ def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum
     A = rcm.A if A is None else A
     _, M_up, M_down = _mono_on_radiative_grid(rcm, T, A)
     G = _heating_operator(rcm, T)
-    # HIGHEST: the default TPU matmul would truncate M_net to bf16 and put
-    # the 0.4% error class right back into the heating
+    # HIGHEST: a default-precision f32 matmul may run in TF32 on the GPU
+    # and put a ~1e-3 error class right back into the heating
     dH = jnp.matmul(G, M_up - M_down,
                     precision=jax.lax.Precision.HIGHEST)  # [np, n_nu]
     if spectral_sum is None:
@@ -283,16 +282,7 @@ def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum
 
 
 def radiate_state(rcm: RCM) -> FluxPack:
-    """FluxPack on the refined radiative grid for the current state.
-
-    To jit this over a GSPMD mesh with globally nu-sharded operands, enter
-    ``rt.discretized.march_gspmd()`` around the trace (as
-    ``parallel.sharded_radiate`` does) so the march kernel lowers through
-    its shard-along-nu partitioning rule; outside that scope the kernel is
-    a plain pallas_call, which XLA cannot partition. shard_map programs
-    (``parallel.make_sharded_heating/step``) need no scope — their
-    operands are shard-local.
-    """
+    """FluxPack on the refined radiative grid for the current state."""
     return _flux_on_radiative_grid(rcm, rcm.T, rcm.A)
 
 
@@ -420,8 +410,8 @@ def jacobian(rcm: RCM, mode: str = "fwd", eps: float = 1.0,
     refresh — the d(sigma)/dT dependence the reference's Jacobian cannot see
     (its heating! radiates with frozen cached cross-sections). With a
     DirectGas/MultiGas this propagates tangents through the Voigt line sum
-    itself: on TPU via the Pallas kernel's custom JVP
-    (``ops.linesum_pallas.sigma_from_lines_pallas_jvp``).
+    itself: on the GPU via the line-sum kernel's custom JVP
+    (``ops.linesum_gpu``), whose tangent runs the plain path.
     """
     lnPe, lnP = jnp.log(rcm.Pe), jnp.log(rcm.P)
 

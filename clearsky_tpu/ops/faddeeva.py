@@ -3,11 +3,11 @@
 The reference evaluates Voigt profiles through ``Faddeyeva985.faddeyeva(x, y)``
 (Zaghloul's ACM TOMS Algorithm 985 class, ~1e-4..1e-5 relative accuracy; call
 site ClearSky.jl ``line_shapes.jl:375``). Scalar region-based branching is
-hostile to TPUs, so this module implements Humlicek's w4 rational-region
-algorithm with *all four regions evaluated branch-free* and combined with
-``jnp.where`` — pure VPU arithmetic, no complex dtype, no data-dependent
-control flow. The same real-pair arithmetic is reused verbatim inside the
-Pallas line-sum kernel.
+hostile to wide vector units, so this module implements Humlicek's w4
+rational-region algorithm with *all four regions evaluated branch-free* and
+combined with ``jnp.where`` — pure elementwise arithmetic, no complex dtype,
+no data-dependent control flow. The same real-pair arithmetic is reused
+verbatim inside the GPU line-sum kernel.
 
 The classic w4 weakness — catastrophic cancellation in Re w as y -> 0 near
 the line-core region — is repaired with a second-order Taylor expansion off

@@ -1,10 +1,10 @@
 """Spectral line-shape kernels: TIPS intensity scaling, Doppler/Lorentz/Voigt,
 and the Perrin & Hartmann sub-Lorentzian CO2 chi factor.
 
-TPU-native equivalents of ClearSky.jl ``src/absorption/line_shapes.jl``. The
+Array-first equivalents of ClearSky.jl ``src/absorption/line_shapes.jl``. The
 reference evaluates one (wavenumber, line) pair at a time through scalar
 closures; here every function is elementwise/broadcasting jnp so whole
-[wavenumber x line] tiles evaluate at once on the VPU.
+[wavenumber x line] tiles evaluate at once.
 
 Units follow HITRAN conventions throughout (wavenumbers in cm^-1, cross
 sections in cm^2/molecule).

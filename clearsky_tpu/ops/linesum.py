@@ -1,7 +1,7 @@
 """Block-banded line-sum: dense accumulation of line profiles onto a wavenumber grid.
 
-This is the hot kernel of the whole framework — the TPU-native inversion of the
-reference's moving-window scalar sweep (``surf!``, ClearSky.jl
+This is the hot kernel of the whole framework — the array-first inversion of
+the reference's moving-window scalar sweep (``surf!``, ClearSky.jl
 ``line_shapes.jl:53-87``, and its truncation helpers ``cutline``/``includedlines``
 at ``line_shapes.jl:10-22``).
 
@@ -9,14 +9,15 @@ Design: lines are sorted by wavenumber (a static invariant of SpectralLines),
 so the set of lines within ``cut`` of a *contiguous block* of the wavenumber
 grid is a contiguous slab of line indices. The slab boundaries are computed
 host-side once per (grid, catalog) pair with ``numpy.searchsorted`` and baked
-into a static :class:`LineWindowPlan`. The device kernel then processes
+into a static :class:`LineWindowPlan`. The plain path here processes
 [block x slab] tiles with pure dense arithmetic — no gathers of ragged
 structure, no data-dependent control flow. Out-of-window and cut-truncated
 elements are masked with ``jnp.where``.
 
-A Pallas TPU kernel implementing the same contraction with explicit VMEM
-double-buffering lives in ``linesum_pallas.py``; this module is the portable
-jnp path and the correctness oracle.
+The GPU kernel in ``linesum_gpu.py`` walks each block's own window instead
+of the padded slab; this module is the portable path, the kernel's tangent
+rule and its correctness reference. :func:`sigma_from_lines_auto` picks
+between them (see ``clearsky_tpu.backend``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..backend import linesum_impl
 from .lineshape import (
     scale_intensity,
     cheb_qref_q,
@@ -69,6 +71,9 @@ PROFILES = {
     * fvoigt(dnu, a / _SQRT_LN2, chi_phco2(dnu, T) * g),
 }
 
+# lines summed per fused step of the plain path (see _sigma_blocks)
+SLAB_CHUNK = 1024
+
 DEFAULT_CUT = {
     "voigt": 25.0,
     "lorentz": 25.0,
@@ -77,6 +82,14 @@ DEFAULT_CUT = {
     "voigt_ref": 25.0,
     "phco2_ref": 500.0,
 }
+
+
+def split_f64(x) -> tuple[np.ndarray, np.ndarray]:
+    """Two-float form of a float64 host array: (f32 hi, f32 residual), with
+    hi + lo reproducing x to ~1e-7 relative of hi's rounding."""
+    x64 = np.asarray(x, np.float64)
+    hi = x64.astype(np.float32)
+    return hi, (x64 - hi.astype(np.float64)).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -157,7 +170,7 @@ class DeviceWindowPlan:
     ``nu_blocks`` keeps the grid at the ambient precision (float64 on the CPU
     suite); ``nu_blocks_lo`` holds the float32 residual of the float64 grid so
     float32 device kernels reconstruct block positions via two-float
-    arithmetic (see ``linesum_pallas``).
+    arithmetic (see ``linesum_gpu``).
     """
 
     nu_blocks: jax.Array     # [n_blocks, block]
@@ -169,32 +182,12 @@ class DeviceWindowPlan:
     n_blocks: int = dataclasses.field(metadata=dict(static=True), default=1)
     slab: int = dataclasses.field(metadata=dict(static=True), default=1)
     n_nu: int = dataclasses.field(metadata=dict(static=True), default=1)
-    # coarse-far split support (see linesum_pallas._pallas_sigma_coarse):
-    # per-shard re-blocked fine grid and coarse far-field grid, prebuilt
-    # host-side where the (static, uniform) geometry accepts the split;
-    # coarse_meta = (d_far, h, n_cc, c_ratio) with c_ratio >= 2
-    fine_blocks: jax.Array | None = None     # [n_blocks_f, Bf]
-    fine_blocks_lo: jax.Array | None = None
-    coarse_blocks: jax.Array | None = None   # [n_blocks_c, block]
-    coarse_blocks_lo: jax.Array | None = None
-    coarse_meta: tuple | None = dataclasses.field(
-        metadata=dict(static=True), default=None
-    )
-    # True when the split also passes the stricter AUTO-routing work-
-    # fraction bound (0.2) — mirrors the static wrapper's round-5 policy:
-    # plain "auto" only takes the coarse route on line-resolving grids
-    # where it beats the stencil incumbent (hardware-measured)
-    coarse_auto: bool = dataclasses.field(
-        metadata=dict(static=True), default=False
-    )
 
     @classmethod
     def from_plan(cls, plan: LineWindowPlan) -> "DeviceWindowPlan":
-        nb64 = np.asarray(plan.nu_blocks, np.float64)
-        nb_hi = nb64.astype(np.float32)
         return cls(
-            nu_blocks=jnp.asarray(nb64),
-            nu_blocks_lo=jnp.asarray((nb64 - nb_hi.astype(np.float64)).astype(np.float32)),
+            nu_blocks=jnp.asarray(np.asarray(plan.nu_blocks, np.float64)),
+            nu_blocks_lo=jnp.asarray(split_f64(plan.nu_blocks)[1]),
             start=jnp.asarray(plan.start, jnp.int32),
             count=jnp.asarray(plan.count, jnp.int32),
             cut=float(plan.cut),
@@ -261,15 +254,12 @@ def sigma_from_lines(
     T = jnp.asarray(T)
     S, alpha, gamma = _line_params(lines, T, P, Pp, conc=conc)
     if S.dtype == jnp.float32:
-        # float32 environment (x64 disabled, e.g. TPU): carry the two-float
-        # position residuals so the oracle's dnu matches float64 to ~1e-7
-        # cm^-1 — this path is also the tangent rule of the Pallas kernel's
-        # custom JVP, so Jacobians near line cores need it as much as the
-        # kernel's own primal does (see linesum_pallas)
-        nb64 = np.asarray(plan.nu_blocks, np.float64)
-        nb_hi = nb64.astype(np.float32)
-        nu_blocks = jnp.asarray(nb_hi)
-        nu_blocks_lo = jnp.asarray((nb64 - nb_hi.astype(np.float64)).astype(np.float32))
+        # float32 environment (x64 disabled, as on the GPU): carry the
+        # two-float position residuals so the plain path's dnu matches
+        # float64 to ~1e-7 cm^-1 — this path is also the tangent rule of
+        # the GPU kernel's custom JVP, so Jacobians near line cores need it
+        # as much as the kernel's own primal does (see linesum_gpu)
+        nu_blocks, nu_blocks_lo = map(jnp.asarray, split_f64(plan.nu_blocks))
         nu_l_lo = jnp.asarray(lines.nu_lo, jnp.float32)
     else:
         nu_blocks = jnp.asarray(plan.nu_blocks, dtype=S.dtype)
@@ -289,33 +279,48 @@ def _sigma_blocks(shape, T, S, alpha, gamma, nu_l, nu_l_lo, nu_blocks,
     """Shared block-banded contraction over (nu_blocks, starts, counts).
 
     ``nu_l_lo``/``nu_blocks_lo`` are the float32 position residuals (two-float
-    dnu, as in the Pallas kernel) — pass None in float64 environments, where a
+    dnu, as in the GPU kernel) — pass None in float64 environments, where a
     single subtraction is already exact to ~1e-10 cm^-1.
+
+    Slabs wider than ``SLAB_CHUNK`` lines are summed ``SLAB_CHUNK`` lines
+    at a time (a loop inside each block): one fused [block x slab] tile of
+    a wide cut (phco2 at 500 cm^-1: ~3700 lines) takes XLA's GPU compiler
+    minutes to compile.
     """
     profile = PROFILES[shape]
     n_lines = nu_l.shape[0]
-    offs = jnp.arange(slab, dtype=jnp.int32)
+    chunk = min(slab, SLAB_CHUNK)
+    n_chunks = -(-slab // chunk)
+    offs = jnp.arange(chunk, dtype=jnp.int32)
     two_float = nu_l_lo is not None
     if not two_float:
         nu_blocks_lo = jnp.zeros_like(nu_blocks)  # unused lax.map operand slot
 
     def block_fn(xs):
         nu_b, nu_b_lo, s0, cnt = xs  # [B], [B], scalar, scalar
-        idx = jnp.clip(s0 + offs, 0, max(n_lines - 1, 0))
-        valid = offs < cnt
-        nul_b = nu_l[idx]                      # [slab]
-        S_b = S[..., idx][..., None, :]        # [..., 1, slab]
-        a_b = alpha[..., idx][..., None, :]
-        g_b = gamma[..., idx][..., None, :]
-        dnu = nu_b[:, None] - nul_b[None, :]   # [B, slab]
-        if two_float:
-            # hi difference is exact for nearby values (Sterbenz); residuals
-            # restore the sub-f32 position information
-            dnu = dnu + (nu_b_lo[:, None] - nu_l_lo[idx][None, :])
-        mask = valid[None, :] & (jnp.abs(dnu) <= cut)
-        Tb = T[..., None, None] if T.ndim else T
-        f = profile(dnu, S_b, a_b, g_b, Tb)    # [..., B, slab]
-        return jnp.sum(jnp.where(mask, f, 0.0), axis=-1)
+
+        def part(o):
+            idx = jnp.clip(s0 + o + offs, 0, max(n_lines - 1, 0))
+            valid = o + offs < cnt
+            nul_b = nu_l[idx]                      # [chunk]
+            S_b = S[..., idx][..., None, :]        # [..., 1, chunk]
+            a_b = alpha[..., idx][..., None, :]
+            g_b = gamma[..., idx][..., None, :]
+            dnu = nu_b[:, None] - nul_b[None, :]   # [B, chunk]
+            if two_float:
+                # hi difference is exact for nearby values (Sterbenz);
+                # residuals restore the sub-f32 position information
+                dnu = dnu + (nu_b_lo[:, None] - nu_l_lo[idx][None, :])
+            mask = valid[None, :] & (jnp.abs(dnu) <= cut)
+            Tb = T[..., None, None] if T.ndim else T
+            f = profile(dnu, S_b, a_b, g_b, Tb)    # [..., B, chunk]
+            return jnp.sum(jnp.where(mask, f, 0.0), axis=-1)
+
+        acc = part(0)
+        if n_chunks > 1:
+            acc = lax.fori_loop(1, n_chunks,
+                                lambda c, acc: acc + part(c * chunk), acc)
+        return acc
 
     sig = lax.map(
         block_fn,
@@ -385,112 +390,27 @@ def _flatten_states(T, P, Pp, conc, n_lines):
     return shp, Tf, Pf, Ppf, concf
 
 
-def _conc_group(concf, a, b):
-    if concf is None or concf.ndim == 1:
-        return concf
-    return concf[a:b]
-
-
-# the Pallas kernel unrolls its state loop — bound the unroll (and its VMEM
-# residency) by splitting large batches into groups
-GROUP = 16
-# unroll cap: beyond this the per-group static state loop bloats the Mosaic
-# program (compile time, register pressure) faster than launch savings accrue
-GROUP_MAX = 64
-
-
-def _state_group(n_lines: int, slab: int, shape: str = "voigt") -> int:
-    """States per Pallas call, sized so the catalog stays VMEM-resident.
-
-    Solves the grouped kernel's per-shape VMEM model for n_states (see
-    ``linesum_pallas._grouped_lane_cost``): the split Voigt pack is
-    lane-major at 7 rows/state; everything else pre-transposes at 3
-    rows/state with the parameter count lane-padded to a 128 multiple. A
-    fixed small group would split a deep column (e.g. 200 RCM levels) into a
-    long chain of sequential kernel calls even when the catalog is small
-    enough to batch far more states per call. Large catalogs stay at GROUP —
-    they run catalog-segmented (see ``linesum_pallas``), and fewer states
-    per call means longer (fewer) line segments within the same VMEM budget.
-    """
-    from .linesum_pallas import CHUNK, _RESIDENT_VMEM_LIMIT
-
-    slab_pad = -(-max(1, slab) // CHUNK) * CHUNK
-    n_lines_pad = -(-(n_lines + slab_pad + CHUNK) // 128) * 128
-    lanes = _RESIDENT_VMEM_LIMIT // (4 * n_lines_pad)
-    if shape in ("voigt", "voigt_ref"):
-        # lane-major split pack: lanes = 7n + 2, no padding
-        max_states = (lanes - 2) // 7
-    else:
-        # pre-transposed pack: ceil((3n + 2)/128)*128 lanes
-        rows = 3
-        max_states = ((lanes // 128) * 128 - 2) // rows
-    return int(np.clip(max_states, GROUP, GROUP_MAX))
-
-
 def sigma_from_lines_auto(plan, lines, T, P, Pp, shape: str = "voigt",
-                          conc=None, strategy: str = "auto"):
-    """Backend-dispatched line sum: the Pallas TPU kernel on TPU (4.8x the XLA
-    path on-chip), the portable jnp path elsewhere.
+                          conc=None):
+    """Line sum on the implementation ``clearsky_tpu.backend`` selects: the
+    GPU kernel (``linesum_gpu``) on the GPU, the plain path on the CPU.
 
-    Accepts any broadcastable batch shape for (T, P, Pp); the Pallas kernel
-    takes flat 1-D state batches, so leading dimensions are flattened and
-    restored around it. Differentiable: the kernel carries a custom JVP whose
-    tangent routes through the jnp oracle (see ``linesum_pallas``).
-
-    ``strategy`` selects the TPU kernel's execution strategy (the off-TPU
-    oracle path is exact and ignores it) — notably ``"coarse"`` opts into
-    the coarse-grid far-field split on dense grids (see
-    ``linesum_pallas._pallas_sigma_coarse`` for the accuracy contract).
+    Accepts any broadcastable batch shape for (T, P, Pp). Differentiable:
+    the kernel carries a custom JVP whose tangent goes through the plain
+    path.
     """
-    import jax
-
-    if jax.default_backend() != "tpu":
+    if linesum_impl(lines.S.dtype) == "xla":
         return sigma_from_lines(plan, lines, T, P, Pp, shape, conc=conc)
-    from .linesum_pallas import sigma_from_lines_pallas_jvp
+    from .linesum_gpu import sigma_from_lines_gpu
 
-    shp, Tf, Pf, Ppf, concf = _flatten_states(T, P, Pp, conc, lines.nu.shape[0])
-    n = Tf.shape[0]
-    grp = _state_group(lines.nu.shape[0], plan.slab, shape)
-    if n <= grp:
-        sig = sigma_from_lines_pallas_jvp(plan, lines, Tf, Pf, Ppf, shape,
-                                          concf, strategy)
-    else:
-        parts = [
-            sigma_from_lines_pallas_jvp(
-                plan, lines, Tf[a : a + grp], Pf[a : a + grp],
-                Ppf[a : a + grp], shape, _conc_group(concf, a, a + grp),
-                strategy,
-            )
-            for a in range(0, n, grp)
-        ]
-        sig = jnp.concatenate(parts, axis=0)
-    return sig.reshape(shp + (plan.n_nu,))
+    return sigma_from_lines_gpu(plan, lines, T, P, Pp, shape, conc=conc)
 
 
 def sigma_from_lines_auto_device(dplan, lines, T, P, Pp, shape="voigt",
-                                 conc=None, strategy: str = "auto"):
-    """Backend-dispatched line sum over a device-array plan (sharded path)."""
-    import jax
-
-    if jax.default_backend() != "tpu":
+                                 conc=None):
+    """:func:`sigma_from_lines_auto` over a device-array plan (sharded path)."""
+    if linesum_impl(lines.S.dtype) == "xla":
         return sigma_from_lines_device(dplan, lines, T, P, Pp, shape, conc=conc)
-    from .linesum_pallas import sigma_from_lines_pallas_device_jvp
+    from .linesum_gpu import sigma_from_lines_gpu_device
 
-    shp, Tf, Pf, Ppf, concf = _flatten_states(T, P, Pp, conc, lines.nu.shape[0])
-    n = Tf.shape[0]
-    grp = _state_group(lines.nu.shape[0], dplan.slab, shape)
-    if n <= grp:
-        sig = sigma_from_lines_pallas_device_jvp(
-            dplan, lines, Tf, Pf, Ppf, shape, conc=concf, strategy=strategy
-        )
-    else:
-        parts = [
-            sigma_from_lines_pallas_device_jvp(
-                dplan, lines, Tf[a : a + grp], Pf[a : a + grp],
-                Ppf[a : a + grp], shape, conc=_conc_group(concf, a, a + grp),
-                strategy=strategy,
-            )
-            for a in range(0, n, grp)
-        ]
-        sig = jnp.concatenate(parts, axis=0)
-    return sig.reshape(shp + (dplan.n_nu,))
+    return sigma_from_lines_gpu_device(dplan, lines, T, P, Pp, shape, conc=conc)

@@ -1,6 +1,6 @@
 """Radiation primitives: spectral unit conversions, Planck law, Schwarzschild RHS.
 
-TPU-native equivalents of the reference's radiation layer (ClearSky.jl
+Array-first equivalents of the reference's radiation layer (ClearSky.jl
 ``src/radiation.jl``). All functions are elementwise jnp, jit/vmap-safe, and
 broadcast over arrays of wavenumbers/temperatures.
 """
@@ -88,7 +88,7 @@ def planck(nu, T):
     The exponent is formed as ``C2 * nu / T`` with the radiation constant
     pre-folded (hc/k as one python scalar): spelling it ``h c nu/(k T)``
     builds the float32 intermediate ``(kT) ~ 2e-21`` whose square in the
-    division JVP underflows to 0 and NaNs every tangent on TPU (f32-only —
+    division JVP underflows to 0 and NaNs every tangent in float32 (f32-only —
     invisible to the f64 CPU suite).
     """
     nu_m = 100.0 * nu

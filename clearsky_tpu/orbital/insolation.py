@@ -1,6 +1,6 @@
 """Insolation: diurnally and annually averaged stellar flux factors.
 
-TPU-native equivalent of ClearSky.jl ``src/insolation.jl``. The reference's
+Array-first equivalent of ClearSky.jl ``src/insolation.jl``. The reference's
 annual average uses the adaptive C `cubature` library (ref insolation.jl:89-94,
 the only native code in its dependency tree); here it is a fixed-order
 composite Gauss-Legendre quadrature over the orbital period — dense, static,
@@ -38,8 +38,8 @@ def hourangle(theta, theta_s):
     The cosine product in the denominator is floored at a tiny positive value:
     mathematically cos >= 0 on [-pi/2, pi/2], but float32's nearest pi/2
     rounds past the true value and cos comes out NEGATIVE (~-4.4e-8), which
-    flips the polar day/night clamp and silently negates polar insolation on
-    TPU.
+    flips the polar day/night clamp and silently negates polar insolation in
+    float32.
     """
     denom = jnp.maximum(jnp.cos(theta) * jnp.cos(theta_s), 1e-30)
     x = -jnp.sin(theta) * jnp.sin(theta_s) / denom

@@ -1,6 +1,6 @@
 """Keplerian orbital mechanics.
 
-TPU-native equivalent of ClearSky.jl ``src/orbits.jl``. The reference solves
+Array-first equivalent of ClearSky.jl ``src/orbits.jl``. The reference solves
 Kepler's equation per time sample with a bracketing regula-falsi root find
 (ref orbits.jl:63-72); here the solve is a fixed-iteration Newton scheme —
 branch-free, jit/vmap-safe, and accurate to float64 roundoff for e < 0.97

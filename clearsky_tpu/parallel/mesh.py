@@ -1,9 +1,9 @@
 """Device meshes and spectral-axis sharding.
 
 The reference parallelizes over the wavenumber axis with shared-memory threads
-(ClearSky.jl ``fluxes.jl:61,93,152,185,228,270``); the TPU-native equivalent is
-a device mesh with the wavenumber grid sharded in contiguous blocks across
-chips (ICI), plus an optional batch axis for column sweeps (SURVEY.md §2.3).
+(ClearSky.jl ``fluxes.jl:61,93,152,185,228,270``); the accelerator equivalent
+is a device mesh with the wavenumber grid sharded in contiguous blocks across
+devices, plus an optional batch axis for column sweeps (SURVEY.md §2.3).
 
 Every per-wavenumber computation in the framework is embarrassingly parallel;
 the single cross-shard reduction is the spectral integral ``trapz(nu, M)``
@@ -51,13 +51,13 @@ def init_multihost(
     the ('batch', 'nu') mesh beyond one host requires
     ``jax.distributed.initialize`` before any device is touched, after which
     :func:`spectral_mesh` sees the global device set and the spectral psum
-    rides ICI within a slice and DCN across hosts. Call this once per process,
+    spans every host's devices. Call this once per process,
     before building meshes:
 
         init_multihost("host0:1234", num_processes=4, process_id=rank)
         mesh = spectral_mesh(n_batch=2)   # global devices
 
-    With no arguments, managed environments (TPU pods, SLURM, Open MPI) are
+    With no arguments, managed environments (SLURM, Open MPI) are
     auto-detected; a plain single process (nothing to detect, or already
     initialized) is a no-op, so library code can call this unconditionally.
     """
@@ -67,16 +67,14 @@ def init_multihost(
         except (RuntimeError, ValueError) as e:
             # Only a true "nothing to detect / already initialized" case may
             # degrade to single-process. If a managed-cluster environment IS
-            # present (SLURM, Open MPI, TPU pods), a failure here means the
+            # present (SLURM, Open MPI), a failure here means the
             # coordinator is unreachable or the env is inconsistent — running
             # every rank as process 0 of 1 would silently break collectives,
             # so fail loudly instead (advisor finding, round 2).
-            def _multi(v, split=None):
+            def _multi(v):
                 raw = os.environ.get(v, "")
                 if not raw:
                     return False
-                if split is not None:  # host lists: >1 entry means a real pod
-                    return len([h for h in raw.split(split) if h]) > 1
                 try:
                     return int(raw) > 1
                 except ValueError:
@@ -85,14 +83,8 @@ def init_multihost(
                 "SLURM_NTASKS": _multi("SLURM_NTASKS"),
                 "OMPI_COMM_WORLD_SIZE": _multi("OMPI_COMM_WORLD_SIZE"),
                 "PMI_SIZE": _multi("PMI_SIZE"),
-                # single-worker TPU attachments (e.g. tunneled single chips)
-                # also set this var; only >1 hostnames means a pod
-                "TPU_WORKER_HOSTNAMES": _multi("TPU_WORKER_HOSTNAMES", ","),
                 "COORDINATOR_ADDRESS": bool(os.environ.get("COORDINATOR_ADDRESS")),
                 "JAX_COORDINATOR_ADDRESS": bool(os.environ.get("JAX_COORDINATOR_ADDRESS")),
-                "MEGASCALE_COORDINATOR_ADDRESS": bool(
-                    os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-                ),
             }
             cluster_vars = [k for k, hit in checks.items() if hit]
             if cluster_vars:

@@ -13,7 +13,7 @@ single-device API:
 * **shard_map** (:func:`make_sharded_heating`, :func:`make_sharded_step`):
   explicit per-shard programs with a hand-placed ``lax.psum`` — the form that
   guarantees the collective schedule for the RCE inner loop, where one psum
-  per step over ICI is the entire communication budget (SURVEY.md §2.3).
+  per step is the entire communication budget (SURVEY.md §2.3).
 
 The wavenumber grid is sharded in **contiguous blocks** so each shard's line
 set is a compact slab (SURVEY.md §5 "long-context" notes); with trapz folded
@@ -100,18 +100,7 @@ def sharded_radiate(mesh: Mesh, rcm) -> FluxPack:
     n_nu = rcm.nu.shape[0]
     _check_divisible(n_nu, mesh)
     rcm_s = shard_spectral(shard_lbl(rcm, mesh.shape["nu"]), mesh, n_nu)
-    # The march kernel participates in GSPMD partitioning directly: inside
-    # the march_gspmd scope its pallas_call is wrapped in
-    # custom_partitioning with an exact shard-along-nu rule
-    # (rt.discretized._cp_monoflux), so no scan pin is needed — each device
-    # runs the fused kernel on its local spectral slab (round-4 pinned the
-    # 2.1x-slower scan here). The scope is entered HERE, not globally:
-    # custom_partitioning has no batching rule, so vmapped flux paths
-    # elsewhere must keep the plain pallas_call.
-    from ..rt.discretized import march_gspmd
-
-    with march_gspmd():
-        return jax.jit(rcm_mod.radiate_state)(rcm_s)
+    return jax.jit(rcm_mod.radiate_state)(rcm_s)
 
 
 def _check_divisible(n_nu: int, mesh: Mesh):

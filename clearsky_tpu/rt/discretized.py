@@ -1,6 +1,6 @@
 """The discretized radiative-transfer core: layered optical depth and flux marches.
 
-TPU-native re-design of the reference's primary flux engine (ClearSky.jl
+Array-first re-design of the reference's primary flux engine (ClearSky.jl
 ``src/core/discretized.jl``): per-layer optical depth by Gauss-Lobatto
 quadrature, the Clough/Iacono/Moncet "linear-in-tau" layer emission, and
 up/down flux marches with hemispheric stream quadrature plus a direct stellar
@@ -8,7 +8,8 @@ beam and Lambertian surface.
 
 Where the reference threads a scalar ODE per wavenumber, here every march is a
 ``lax.scan`` over pressure layers carrying the *entire spectrum and all
-streams at once* — [nstream, n_nu] per step, pure fused VPU arithmetic. All
+streams at once* — [nstream, n_nu] per step, pure fused elementwise
+arithmetic. All
 wavenumber-parallelism is left to XLA/sharding (see ``clearsky_tpu.parallel``).
 
 The reference's adaptive Radau engine (``src/core/radau.jl``) is replaced by a
@@ -32,7 +33,6 @@ from ..constants import N_AVOGADRO
 from ..ops.planck import planck
 from ..utils.quadrature import stream_nodes, lobatto_unit_nodes
 from ..utils.grids import trapz
-from .march_pallas import _trans_emit
 
 __all__ = [
     "FluxPack",
@@ -57,12 +57,49 @@ __all__ = [
 TAU_MIN = 1e-6
 
 # march-scan unroll factor: amortizes loop overhead across layers and lets
-# XLA fuse consecutive layers so the [nstream, n_nu] carry round-trips HBM
-# 4x less often. A/B'd on TPU at 2^19 points x 19 layers with 96-call chains
-# (scripts/march_unroll_ab.py; short chains are RTT-noise-dominated, see
-# CLAUDE.md): monoflux 6.8 -> 4.1 ms at unroll 4 (4.4 at 2, 4.6 at 8);
-# outgoing 1.6 -> 1.0 (0.8 fully unrolled, but mono regresses there).
-_UNROLL = 4
+# XLA fuse consecutive layers so the [nstream, n_nu] carry round-trips
+# device memory less often. Measured on an NVIDIA H100 80GB HBM3 at 700 W,
+# 2^19 points x 19 layers x 5 streams (bench.py, median of 7 warm runs):
+# monoflux 1.67 / 1.40 / 1.57 / 1.20 ms and outgoing_flux 0.59 / 0.93 /
+# 0.62 / 0.65 ms at unroll 1 / 2 / 4 / 8. 8 wins the two-march monoflux
+# (the RCM heating path) by 23% over 4 and costs outgoing_flux 0.06 ms.
+_UNROLL = 8
+
+
+def _ratio_series(tm):
+    """(1 - e^-tm)/tm = sum_k (-tm)^k/(k+1)!, valid below the 0.25 switch.
+
+    f32 keeps 7 terms (truncation <= 0.25^7/8! ~ 1.5e-9 relative at the
+    switch — an order below f32 roundoff); f64 keeps 11 (< 2.4e-14)."""
+    if jnp.asarray(tm).dtype == jnp.float32:
+        return 1.0 - tm * (0.5 - tm * ((1.0 / 6.0) - tm * (
+            (1.0 / 24.0) - tm * ((1.0 / 120.0) - tm * ((1.0 / 720.0)
+                                                       - tm * (1.0 / 5040.0))))))
+    return 1.0 - tm * (0.5 - tm * ((1.0 / 6.0) - tm * (
+        (1.0 / 24.0) - tm * ((1.0 / 120.0) - tm * ((1.0 / 720.0) - tm * (
+            (1.0 / 5040.0) - tm * ((1.0 / 40320.0) - tm * (
+                (1.0 / 362880.0) - tm * (1.0 / 3628800.0)))))))))
+
+
+def _trans_emit(tm):
+    """(t, omt, ratio): transmittance e^-tm, its complement -expm1(-tm), and
+    the linear-in-tau emission ratio omt/tm — all from ONE exp and ONE
+    series evaluation (the ratio series is the omt series' inner factor).
+
+    Forming 1 - exp(-tm) directly is the f32 catastrophe for transparent
+    layers, hence the series/exp split at tm = 0.25: below it
+    omt = tm * ratio_series (exact to f32 roundoff),
+    above it 1 - e costs at most one ulp of exp absolute, <= 2.7e-7
+    relative at the switch. ratio has no 0/0 hazard this way: the series
+    needs no divide, and the large branch divides by tm >= 0.25.
+    """
+    e = jnp.exp(-tm)
+    r = _ratio_series(tm)
+    small = tm < 0.25
+    omt_l = 1.0 - e
+    ratio = jnp.where(small, r, omt_l / jnp.where(small, 1.0, tm))
+    omt = jnp.where(small, tm * r, omt_l)
+    return 1.0 - omt, omt, ratio
 
 
 class FluxPack(NamedTuple):
@@ -95,7 +132,7 @@ def layer_planck(B1, B2, tau, t, omt=None):
     subtraction is catastrophic in float32 for near-transparent layers:
     the ~6% rounding error in (1-t) multiplies dB/tau and biases every
     layer's emission, which accumulates across the column march into O(1)
-    flux errors on TPU.
+    flux errors in float32.
 
     The ratio (1-e^-tau)/tau is 0/0 at tau -> 0; the reference protects it by
     flooring tau at 1e-6 (a physics bias, see TAU_MIN above) — here it is
@@ -151,11 +188,8 @@ def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int, floor: bool = False):
     Same quadrature as :func:`layer_tau`, but the node axis stays flat
     ([np-1 * nlobatto, n_nu]) and the whole Lobatto reduction — dP, node
     weight, 1e-4 Na/g, 1/mu — is one static block-diagonal matmul that
-    reads sigma exactly once. Evaluating sigma at the 3-D
-    [np-1, nlobatto, n_nu] shape forces a physical sublane re-tiling on TPU
-    (each nlobatto group pads to 8 sublanes; a captured trace priced it at
-    0.96 ms/call at 2^19 points — 29% of the table-mode OLR,
-    scripts/tpu_trace_capture.py round 4).
+    reads sigma exactly once, with sigma evaluated as one flat
+    [np-1 * nlobatto, n_nu] batch of states.
 
     ``muf`` is the flat per-node molar mass [np-1 * nlobatto].
     """
@@ -169,7 +203,7 @@ def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int, floor: bool = False):
     dP = P[1:] - P[:-1]
     Wm = jnp.asarray(mask, dtype=sig_flat.dtype) * dP[:, None].astype(sig_flat.dtype)
     Wm = Wm * ((1e-4 * N_AVOGADRO / g) / muf)[None, :].astype(sig_flat.dtype)
-    # HIGHEST: the default TPU matmul would truncate sigma to bf16 (0.4%)
+    # HIGHEST: a default-precision f32 matmul may run in TF32 on the GPU
     tau = jnp.matmul(Wm, sig_flat, precision=jax.lax.Precision.HIGHEST)
     if floor:
         tau = jnp.maximum(tau, jnp.asarray(TAU_MIN, dtype=tau.dtype))
@@ -191,8 +225,8 @@ def _march(tau, m, B_lo, B_hi, I0, W=None, reverse=False):
 
     tau: [L, n_nu] per-layer VERTICAL optical depth. The stream slant factors
     ``m`` [nstream] are applied INSIDE the scan body — materializing the
-    [L, nstream, n_nu] slant depths outside the scan costs ~0.8 GB of HBM
-    round-trip per march at production scale (2^19 points, 5 streams), pure
+    [L, nstream, n_nu] slant depths outside the scan costs ~0.8 GB of
+    device-memory round trip per march at production scale (2^19 points, 5 streams), pure
     bandwidth waste the compiler cannot sink into the loop.
     B_lo/B_hi: [L, n_nu] Planck at the entry/exit level of each layer.
     I0: [nstream, n_nu] initial intensity.
@@ -210,29 +244,20 @@ def _march(tau, m, B_lo, B_hi, I0, W=None, reverse=False):
     def step(I, xs):
         tau_l, b1, b2 = xs
         tm = tau_l[None, :] * m[:, None]
-        # ONE transcendental per stream element: the march is transcendental-
-        # bound on TPU (measured 51x over its byte roof with exp AND expm1 in
-        # the body). omt is the accuracy-critical quantity — it feeds the
-        # 0/0-prone ratio omt/tau in layer_planck (see its docstring) and
-        # MUST NOT be formed as 1 - exp(-tm) in f32 for small tm. It is
-        # computed by the series/exp split in rt.march_pallas rather than
-        # jnp.expm1 because XLA's TPU expm1 lowering is the LESS accurate
-        # option: measured 1.1e-4 max relative error near tm ~ 0.013
-        # (/tmp-class probe, round 4) vs 9e-6 for the split, whose error is
-        # bounded by the TPU exp's own ~4.6e-6 relative class above the
-        # series switch. The transmittance t = 1 - omt is safe this way
-        # around: its absolute error is ~1 ulp of 1, and t only ever
-        # multiplies the carried intensity, so the march stays at f32
-        # roundoff even for opaque layers where t's RELATIVE error is large
-        # (t ~ 1e-10 +- 6e-8 transmits nothing either way). Round 5: the
-        # emission ratio omt/tau is the omt series' own inner factor, so
-        # _trans_emit shares ONE series between them instead of
-        # layer_planck re-deriving it (four fewer full-vreg ops per layer).
+        # ONE transcendental per stream element. omt is the accuracy-
+        # critical quantity — it feeds the 0/0-prone ratio omt/tau in
+        # layer_planck (see its docstring) and MUST NOT be formed as
+        # 1 - exp(-tm) in f32 for small tm; _trans_emit computes it by a
+        # series/exp split that also yields the emission ratio. The
+        # transmittance t = 1 - omt is safe this way around: its absolute
+        # error is ~1 ulp of 1, and t only ever multiplies the carried
+        # intensity, so the march stays at f32 roundoff even for opaque
+        # layers where t's RELATIVE error is large.
         t, omt, ratio = _trans_emit(tm)
         dB = b1[None, :] - b2[None, :]
         I = I * t + (b2[None, :] * omt - dB * t + ratio * dB)
-        # pinned: the default TPU matmul truncates to bf16 — a 0.4% error
-        # class on the emitted fluxes (the kernel path sums this exactly)
+        # pinned: a default-precision f32 matmul may run in TF32 on the GPU
+        # (~1e-3 relative) — a visible error class on the emitted fluxes
         return I, (None if W is None else jnp.matmul(
             W, I, precision=jax.lax.Precision.HIGHEST))
 
@@ -255,15 +280,6 @@ def monoflux(tau, B, nu, S_nu, albedo_nu, theta_s, nstream: int):
     Returns (M_up, M_down): [np, n_nu].
     """
     ctheta = jnp.cos(jnp.asarray(theta_s, dtype=tau.dtype))
-    if _march_kernel_ok(tau, nstream):
-        return _monoflux_kernel_path(tau, B, S_nu, albedo_nu, ctheta, nstream,
-                                     False)
-    return _monoflux_scan(tau, B, S_nu, albedo_nu, ctheta, nstream)
-
-
-def _monoflux_scan(tau, B, S_nu, albedo_nu, ctheta, nstream):
-    """The XLA lax.scan implementation of monoflux (the correctness oracle
-    for the march kernel, and the tangent path of its custom JVP)."""
     m, W = stream_nodes(nstream)
     m = jnp.asarray(m, dtype=tau.dtype)
     W = jnp.asarray(W, dtype=tau.dtype)
@@ -292,337 +308,6 @@ def _monoflux_scan(tau, B, S_nu, albedo_nu, ctheta, nstream):
     return M_up, M_down
 
 
-# the fused-march TPU kernel (rt.march_pallas): set False to pin the XLA
-# scan path (A/B, debugging). Prefer `march_kernel_mode` below for scoped
-# control — this module global remains as a blunt master switch for the
-# A/B scripts.
-_USE_MARCH_KERNEL = True
-
-# Scoped march-implementation control (advisor r4: the GSPMD path used to
-# mutate _USE_MARCH_KERNEL around a trace, which is neither reentrant nor
-# thread-safe). Modes:
-#   "auto"      — kernel on TPU when the shape bounds hold (default)
-#   "off"       — always the XLA scan
-#   "interpret" — force the kernel in Pallas interpret mode on ANY backend
-#                 (CPU sharding tests / multichip dryrun exercise the
-#                 production kernel-under-mesh composition this way)
-# NOTE: the mode is read at TRACE time; entering a mode does not invalidate
-# already-compiled jit caches. Use fresh jit closures per mode (as the tests
-# and A/B scripts do).
-import contextvars as _contextvars
-import contextlib as _contextlib
-
-_MARCH_MODE = _contextvars.ContextVar("march_kernel_mode", default="auto")
-
-# Scoped opt-in for the custom_partitioning march wrappers. They are only
-# needed when the kernel's operands are GLOBALLY nu-sharded (GSPMD
-# auto-partitioning, entered via parallel.sharded_radiate); outside that
-# context the kernel must stay a plain pallas_call, because
-# custom_partitioning has no batching rule in jax 0.9 — routing through it
-# unconditionally on multi-device runtimes broke every vmapped flux path
-# (batched sweeps, vmapped FD Jacobians; round-5 review finding).
-_MARCH_PARTITIONED = _contextvars.ContextVar("march_partitioned", default=False)
-
-
-@_contextlib.contextmanager
-def march_gspmd():
-    """Trace scope in which march kernels lower via custom_partitioning
-    (shard-along-nu). Enter around jit traces whose operands are globally
-    sharded over a mesh; see parallel.sharded_radiate."""
-    tok = _MARCH_PARTITIONED.set(True)
-    try:
-        yield
-    finally:
-        _MARCH_PARTITIONED.reset(tok)
-
-
-@_contextlib.contextmanager
-def march_kernel_mode(mode: str):
-    """Scoped override of the march implementation: 'auto' | 'off' | 'interpret'."""
-    if mode not in ("auto", "off", "interpret"):
-        raise ValueError(f"march_kernel_mode must be auto/off/interpret, not {mode!r}")
-    tok = _MARCH_MODE.set(mode)
-    try:
-        yield
-    finally:
-        _MARCH_MODE.reset(tok)
-
-
-def _march_kernel_ok(tau, nstream: int) -> bool:
-    """Route to the fused Pallas march when the static-unroll and
-    sublane-packing bounds hold (see rt.march_pallas)."""
-    import jax as _jax
-
-    from .march_pallas import MAX_LAYERS
-
-    mode = _MARCH_MODE.get()
-    if mode == "off" or not _USE_MARCH_KERNEL:
-        return False
-    backend_ok = mode == "interpret" or _jax.default_backend() == "tpu"
-    return (
-        backend_ok
-        and tau.ndim == 2
-        and 1 <= tau.shape[0] <= MAX_LAYERS
-        and nstream <= 8
-    )
-
-
-def _monoflux_scan_pair(tau, B, S_nu, albedo_nu, ctheta, nstream, thermal_only):
-    """Scan-path twin of the kernel wrapper's (M_up, M_down) contract."""
-    if thermal_only:
-        m, W = stream_nodes(nstream)
-        m = jnp.asarray(m, dtype=tau.dtype)
-        W = jnp.asarray(W, dtype=tau.dtype)
-        n_nu = tau.shape[1]
-        I_surf = jnp.broadcast_to(B[-1][None, :], (nstream, n_nu))
-        I_toa, M_up_body = _march(tau, m, B[1:], B[:-1], I_surf, W=W,
-                                  reverse=True)
-        M_up = jnp.concatenate(
-            [M_up_body, (jnp.pi * B[-1])[None, :]], axis=0
-        )
-        return M_up, jnp.zeros_like(M_up)
-    return _monoflux_scan(tau, B, S_nu, albedo_nu, ctheta, nstream)
-
-
-from functools import partial as _partial, lru_cache as _lru_cache  # noqa: E402
-
-
-@_lru_cache(maxsize=None)
-def _cp_monoflux(nstream: int, thermal_only: bool, interpret: bool):
-    """The march kernel wrapped in ``custom_partitioning`` so it lowers under
-    GSPMD auto-partitioning (VERDICT r4 #1 missing item: XLA has no built-in
-    partitioning rule for ``pallas_call``, so a nu-sharded GSPMD program
-    would otherwise all-gather the full spectrum or fail to lower). The
-    march is per-wavenumber independent, so the rule is exact: every operand
-    and result shards along its nu (last) axis; each shard runs the kernel
-    on its local slab.
-    """
-    from jax.experimental.custom_partitioning import custom_partitioning
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from .march_pallas import monoflux_pallas
-
-    m, W = stream_nodes(nstream)
-
-    def impl(tau, B, S_nu, albedo_nu, ctheta, mw):
-        # mw is threaded as an OPERAND: a jnp constant closed over here
-        # would become a jaxpr const, which custom_partitioning rejects
-        return monoflux_pallas(tau, B, S_nu, albedo_nu, ctheta, m, W,
-                               thermal_only=thermal_only, interpret=interpret,
-                               mw=mw)
-
-    fn = custom_partitioning(impl)
-
-    def _nu_axis(arg_shapes):
-        spec = arg_shapes[0].sharding.spec  # tau [L, n_nu]
-        return spec[-1] if len(spec) else None
-
-    def infer(mesh, arg_shapes, result_shape):
-        s = NamedSharding(mesh, P(None, _nu_axis(arg_shapes)))
-        return (s, s)
-
-    def partition(mesh, arg_shapes, result_shape):
-        nu = _nu_axis(arg_shapes)
-        s2 = NamedSharding(mesh, P(None, nu))
-        s1 = NamedSharding(mesh, P(nu))
-        s0 = NamedSharding(mesh, P())
-        srep = NamedSharding(mesh, P(None, None))
-        return mesh, impl, (s2, s2), (s2, s2, s1, s1, s0, srep)
-
-    fn.def_partition(
-        infer_sharding_from_operands=infer,
-        partition=partition,
-        # tau [l,n], B [m,n], S [n], albedo [n], ctheta scalar, mw [p,q]
-        # -> M_up, M_down (everything shards along n = the nu axis only)
-        sharding_rule="l n, m n, n, n, , p q -> m n, m n",
-    )
-    return fn
-
-
-def _fold_rows(x, batched, nb):
-    """[Nb, R, N] (batched) or [R, N] -> [R, Nb*N] for the lane-fold rule."""
-    if batched:
-        R = x.shape[1]
-        return jnp.moveaxis(x, 0, 1).reshape(R, -1)
-    return jnp.tile(x, (1, nb))
-
-
-def _fold_spec(x, batched, nb):
-    """[Nb, N] or [N] -> [Nb*N]."""
-    return x.reshape(-1) if batched else jnp.tile(x, nb)
-
-
-@_lru_cache(maxsize=None)
-def _vm_monoflux(nstream: int, thermal_only: bool, interpret: bool):
-    """The march kernel under ``custom_vmap``: vmapped calls FOLD the batch
-    into the wavenumber axis (the march is purely per-lane, so concatenating
-    columns along nu is exact) and run ONE kernel over Nb*N lanes.
-
-    Without this, jax's generic pallas batching rule inserts the batch as a
-    squeezed block dimension wherever the trace left it — and a mid-array
-    batch dim (e.g. from a vmapped quadrature matmul, whose dot_general
-    leaves the batch at axis 1) violates the TPU lowering's last-two-dims
-    rule. Batched exoplanet sweeps crashed exactly this way (latent since
-    the kernel landed in round 4; the round-4 curve predated the kernel).
-    """
-    from jax.custom_batching import custom_vmap
-    from .march_pallas import monoflux_pallas
-
-    m, W = stream_nodes(nstream)
-
-    def call(tau, B, S_nu, albedo_nu, ctheta):
-        return monoflux_pallas(tau, B, S_nu, albedo_nu, ctheta, m, W,
-                               thermal_only=thermal_only, interpret=interpret)
-
-    fn = custom_vmap(call)
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, tau, B, S_nu, albedo_nu, ctheta):
-        tb, Bb, Sb, ab, cb = in_batched
-        nb = axis_size
-        if cb:
-            # per-column stellar angles: fall back to a sequential map
-            # (rare; the batched-sweep paths share theta_s)
-            args = (
-                tau if tb else jnp.broadcast_to(tau, (nb,) + tau.shape),
-                B if Bb else jnp.broadcast_to(B, (nb,) + B.shape),
-                S_nu if Sb else jnp.broadcast_to(S_nu, (nb,) + S_nu.shape),
-                albedo_nu if ab
-                else jnp.broadcast_to(albedo_nu, (nb,) + albedo_nu.shape),
-                ctheta,
-            )
-            up, dn = jax.lax.map(lambda a: call(*a), args)
-            return (up, dn), (True, True)
-        N = tau.shape[-1]
-        up, dn = call(
-            _fold_rows(tau, tb, nb), _fold_rows(B, Bb, nb),
-            _fold_spec(S_nu, Sb, nb), _fold_spec(albedo_nu, ab, nb), ctheta,
-        )
-        unfold = lambda x: jnp.moveaxis(x.reshape(x.shape[0], nb, N), 1, 0)
-        return (unfold(up), unfold(dn)), (True, True)
-
-    return fn
-
-
-@_partial(jax.custom_jvp, nondiff_argnums=(5, 6))
-def _monoflux_kernel_path(tau, B, S_nu, albedo_nu, ctheta, nstream,
-                          thermal_only):
-    from .march_pallas import pack_mw
-
-    interpret = _MARCH_MODE.get() == "interpret"
-    m, W = stream_nodes(nstream)
-    if _MARCH_PARTITIONED.get():
-        # GSPMD trace scope (march_gspmd): operands are globally nu-sharded,
-        # so route through the partitioning-aware wrapper — each device runs
-        # the kernel on its local spectral slab
-        mw = jnp.asarray(pack_mw(m, W), dtype=tau.dtype)
-        return _cp_monoflux(nstream, thermal_only, interpret)(
-            tau, B, S_nu, albedo_nu, ctheta, mw
-        )
-    return _vm_monoflux(nstream, thermal_only, interpret)(
-        tau, B, S_nu, albedo_nu, ctheta
-    )
-
-
-@_monoflux_kernel_path.defjvp
-def _monoflux_kernel_jvp(nstream, thermal_only, primals, tangents):
-    # tangents ride the XLA scan implementation — mathematically identical,
-    # and lax.scan differentiates cleanly where a Pallas kernel would need
-    # a hand-written transpose
-    fn = _partial(_monoflux_scan_pair, nstream=nstream,
-                  thermal_only=thermal_only)
-    return jax.jvp(fn, primals, tangents)
-
-
-@_lru_cache(maxsize=None)
-def _cp_olr(nstream: int, interpret: bool):
-    """TOA-only march kernel under custom_partitioning (same shard-along-nu
-    story as :func:`_cp_monoflux`)."""
-    from jax.experimental.custom_partitioning import custom_partitioning
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from .march_pallas import olr_pallas
-
-    m, W = stream_nodes(nstream)
-
-    def impl(tau, B, mw):
-        return olr_pallas(tau, B, m, W, interpret=interpret, mw=mw)
-
-    fn = custom_partitioning(impl)
-
-    def _nu_axis(arg_shapes):
-        spec = arg_shapes[0].sharding.spec
-        return spec[-1] if len(spec) else None
-
-    def infer(mesh, arg_shapes, result_shape):
-        return NamedSharding(mesh, P(_nu_axis(arg_shapes)))
-
-    def partition(mesh, arg_shapes, result_shape):
-        nu = _nu_axis(arg_shapes)
-        s2 = NamedSharding(mesh, P(None, nu))
-        srep = NamedSharding(mesh, P(None, None))
-        return mesh, impl, NamedSharding(mesh, P(nu)), (s2, s2, srep)
-
-    fn.def_partition(
-        infer_sharding_from_operands=infer,
-        partition=partition,
-        sharding_rule="l n, m n, p q -> n",
-    )
-    return fn
-
-
-def _olr_scan(tau, B, nstream: int):
-    """Scan-path twin of the TOA-only kernel (oracle + JVP tangent path)."""
-    m, W = stream_nodes(nstream)
-    m = jnp.asarray(m, dtype=tau.dtype)
-    W = jnp.asarray(W, dtype=tau.dtype)
-    n_nu = tau.shape[1]
-    I_surf = jnp.broadcast_to(B[-1][None, :], (len(W), n_nu))
-    I_toa, _ = _march(tau, m, B[1:], B[:-1], I_surf, reverse=True)
-    return jnp.einsum("k,kv->v", W, I_toa,
-                      precision=jax.lax.Precision.HIGHEST)
-
-
-@_lru_cache(maxsize=None)
-def _vm_olr(nstream: int, interpret: bool):
-    """TOA-only kernel under the same lane-fold custom_vmap rule as
-    :func:`_vm_monoflux`."""
-    from jax.custom_batching import custom_vmap
-    from .march_pallas import olr_pallas
-
-    m, W = stream_nodes(nstream)
-
-    def call(tau, B):
-        return olr_pallas(tau, B, m, W, interpret=interpret)
-
-    fn = custom_vmap(call)
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, tau, B):
-        tb, Bb = in_batched
-        nb = axis_size
-        N = tau.shape[-1]
-        out = call(_fold_rows(tau, tb, nb), _fold_rows(B, Bb, nb))
-        return out.reshape(nb, N), True
-
-    return fn
-
-
-@_partial(jax.custom_jvp, nondiff_argnums=(2,))
-def _olr_kernel_path(tau, B, nstream):
-    from .march_pallas import pack_mw
-
-    interpret = _MARCH_MODE.get() == "interpret"
-    m, W = stream_nodes(nstream)
-    if _MARCH_PARTITIONED.get():
-        mw = jnp.asarray(pack_mw(m, W), dtype=tau.dtype)
-        return _cp_olr(nstream, interpret)(tau, B, mw)
-    return _vm_olr(nstream, interpret)(tau, B)
-
-
-@_olr_kernel_path.defjvp
-def _olr_kernel_jvp(nstream, primals, tangents):
-    return jax.jvp(_partial(_olr_scan, nstream=nstream), primals, tangents)
-
-
 def outgoing_flux(tau, B, nstream: int, vertical: bool = False):
     """Outgoing monochromatic flux at TOA [n_nu]: upward march from surface Planck.
 
@@ -644,11 +329,6 @@ def outgoing_flux(tau, B, nstream: int, vertical: bool = False):
     # inside a jit trace the dtype cast stages an op (m becomes a tracer)
     # and np.asarray(m) would raise TracerArrayConversionError
     nstream, n_nu = len(m), tau.shape[1]
-    if not vertical and _march_kernel_ok(tau, nstream):
-        # TOA-only kernel (round 5): skips the per-layer weighted
-        # reductions and [L, n_nu] flux writes of the full march — only the
-        # final TOA intensity is reduced
-        return _olr_kernel_path(tau, B, nstream)
     m = jnp.asarray(m, dtype=tau.dtype)
     W = jnp.asarray(W, dtype=tau.dtype)
     I_surf = jnp.broadcast_to(B[-1][None, :], (nstream, n_nu))

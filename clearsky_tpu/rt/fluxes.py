@@ -1,6 +1,6 @@
 """One-shot flux API: optical depth, transmittance, OLR, and full flux packs.
 
-TPU-native equivalent of ClearSky.jl ``src/fluxes.jl``. Every entry point
+Array-first equivalent of ClearSky.jl ``src/fluxes.jl``. Every entry point
 consumes absorbers through dense ``sigma[..., n_nu]`` evaluation and runs the
 whole spectrum through the discretized core at once — the reference's
 per-wavenumber ``@threads``/``@spawn`` loops (ref fluxes.jl:61,93,152,185,228,270)
@@ -74,11 +74,11 @@ class Radau:
     internal opacity-cache resolution for non-accelerated absorber stacks
     (0 = an AcceleratedAbsorber's own grid, else 256 omega-spaced points).
 
-    **Role: error-controlled cross-checks, not production loops.** On TPU a
-    heating evaluation costs ~2645 ms vs 0.107 ms for the discretized core
-    at the same config (BASELINE.md round 3): every lane in the batched
-    ``lax.while_loop`` pays for the stiffest lane's step count (measured
-    lane divergence up to ~70x mean). Use it to validate a configuration
+    **Role: error-controlled cross-checks, not production loops.** Every
+    lane in the batched ``lax.while_loop`` pays for the stiffest lane's step
+    count (lane divergence up to ~70x the mean step count), so it costs
+    orders of magnitude more than the discretized core at the same
+    configuration. Use it to validate a configuration
     against an independent integrator with an explicit error tolerance; for
     production accuracy needs, refine the grid instead via ``RadauEq`` or a
     larger ``radmul`` — the discretized core converges under refinement
@@ -133,7 +133,7 @@ def _column_tau(P, g, fT, fmu, A, nlobatto, floor=False):
 
     sigma is evaluated FLAT ([np-1 * nlobatto, n_nu]) and the Lobatto
     quadrature is one static block-diagonal matmul (see
-    :func:`rt.discretized.layer_tau_flat` for the TPU re-tiling rationale).
+    :func:`rt.discretized.layer_tau_flat`).
     """
     from .discretized import layer_tau_flat
 
@@ -288,48 +288,9 @@ def outgoing(
             cache, Pgrid[-1], Pgrid[0], g, nstream=core.nstream,
             tol=core.tol, vertical=vertical, max_steps=core.max_steps,
         )
-    if not vertical and _fused_table_ok(A, Pg.shape[0] - 1, nstream):
-        # round-5 fast path: single split-precision table gas -> the fully
-        # fused coefficients->sigma->tau->march kernel (rt.fused_table),
-        # 1.6x the unfused pipeline at 2^19 on hardware (band OLR delta
-        # 3.6e-7 vs unfused; gated in tests/test_fused_table.py)
-        from ..absorption.absorbers import AbsorberStack
-        from .discretized import _MARCH_MODE
-        from .fused_table import table_olr_fused
-
-        gas = A.gases[0] if isinstance(A, AbsorberStack) else A
-        return table_olr_fused(gas, Pg, g, fT, fmu, nlobatto, nstream,
-                               interpret=_MARCH_MODE.get() == "interpret")
     tau = _column_tau(Pg, g, fT, fmu, A, nlobatto)
     B = _planck_levels(Pg, A.nu, fT)
     return outgoing_flux(tau, B, nstream, vertical=vertical)
-
-
-def _fused_table_ok(A, L: int, nstream: int) -> bool:
-    """Auto-route gate for the fused table-OLR kernel: production table
-    absorber (one split-precision Gas), TPU backend (or forced interpret),
-    kernel shape bounds, single device (no partitioning wrapper yet —
-    sharded programs keep the unfused path, whose march IS partitioned)."""
-    import jax as _jax
-
-    from .discretized import _MARCH_MODE, _USE_MARCH_KERNEL
-    from .fused_table import fused_table_applicable
-    from .march_pallas import MAX_LAYERS
-
-    mode = _MARCH_MODE.get()
-    if mode == "off" or not _USE_MARCH_KERNEL:
-        return False
-    # interpret is a forced testing mode (CPU suite, any device count);
-    # otherwise require the TPU backend and a single device
-    backend_ok = mode == "interpret" or (
-        _jax.default_backend() == "tpu" and len(_jax.devices()) == 1
-    )
-    return (
-        backend_ok
-        and 1 <= L <= MAX_LAYERS
-        and nstream <= 8
-        and fused_table_applicable(A)
-    )
 
 
 def monochromatic_fluxes(
@@ -382,19 +343,6 @@ def monochromatic_fluxes(
         return M_up, M_down, tau
 
     Pg = jnp.asarray(P)
-    if _fused_table_ok(A, Pg.shape[0] - 1, core.nstream):
-        # round-5 fast path: single split-precision table gas through the
-        # fused coefficients->tau->both-marches kernel (rt.fused_table)
-        from ..absorption.absorbers import AbsorberStack
-        from .discretized import _MARCH_MODE
-        from .fused_table import table_monoflux_fused
-
-        gas = A.gases[0] if isinstance(A, AbsorberStack) else A
-        return table_monoflux_fused(
-            gas, Pg, g, fT, fmu, S_nu, a_nu, theta_s,
-            core.nlobatto, core.nstream,
-            interpret=_MARCH_MODE.get() == "interpret",
-        )
     tau = _column_tau(Pg, g, fT, fmu, A, core.nlobatto)
     B = _planck_levels(Pg, A.nu, fT)
     M_up, M_down = monoflux(tau, B, A.nu, S_nu, a_nu, theta_s, core.nstream)

@@ -1,6 +1,6 @@
 """Grid construction and basic numeric utilities.
 
-TPU-first equivalents of the reference's grid helpers (ClearSky.jl
+Array-first equivalents of the reference's grid helpers (ClearSky.jl
 ``src/util.jl:18-93``). Node placement happens host-side in numpy (it is
 setup-time work); integration/differentiation helpers are jnp and jit-safe.
 """

@@ -1,6 +1,6 @@
 """Device-resident interpolation primitives.
 
-TPU-native replacements for the reference's BasicInterpolators dependency
+Array-first replacements for the reference's BasicInterpolators dependency
 (used at ClearSky.jl ``gases.jl:69-85``, ``collision_induced_absorption.jl:151-152``,
 ``absorbers.jl:116``, ``atmospherics.jl:7,147``):
 
@@ -93,12 +93,11 @@ def cheb2d_coeffs(values, nx: int | None = None, ny: int | None = None):
     ny = values.shape[-1] if ny is None else ny
     Mx = jnp.asarray(cheb_coeff_matrix(nx), dtype=values.dtype)
     My = jnp.asarray(cheb_coeff_matrix(ny), dtype=values.dtype)
-    # C = Mx @ V @ My^T along the trailing axes. Precision.HIGHEST: the TPU's
-    # default f32 matmul truncates operands to bf16 (8-bit mantissa) — on
-    # ln(sigma) values of magnitude ~50-90 that is a +-0.2-0.5 absolute error
-    # in ln, i.e. 20-75% in sigma after exp (the round-4 production-scale
-    # table tail, scripts/table_error_diagnosis.py). The transform is
-    # bake-time and tiny, so the 6-pass exact-f32 mode costs nothing.
+    # C = Mx @ V @ My^T along the trailing axes. Precision.HIGHEST: a
+    # default-precision f32 matmul may run in TF32 on the GPU (10-bit
+    # mantissa) — on ln(sigma) values of magnitude ~50-90 that is a ~0.05
+    # absolute error in ln, i.e. percents in sigma after exp. The transform
+    # is bake-time and small, so full f32 costs little.
     return jnp.einsum("ij,...jk,lk->...il", Mx, values, My,
                       precision=jax.lax.Precision.HIGHEST)
 

@@ -4,7 +4,7 @@ The reference integrates small scalar ODEs (hydrostatic balance, moist
 adiabats) with an adaptive implicit Radau solver (ScalarRadau, used at
 ClearSky.jl ``atmospherics.jl:87,161,441`` and ``radau.jl``). Adaptive
 stepping is hostile to XLA; these profiles are tiny 1-D setup integrations,
-so the TPU-native design replaces adaptivity with dense fixed-grid RK4 with
+so the array-first design replaces adaptivity with dense fixed-grid RK4 with
 substeps — accuracy is controlled by resolution (the reference itself then
 linearly interpolates the dense output, ref atmospherics.jl:443).
 

@@ -1,59 +1,67 @@
-"""Tracing and kernel cost accounting.
-
-The reference has no profiling beyond progress bars (SURVEY.md §5); here
-profiling is first-class because the speed-of-light claim needs numbers:
+"""Tracing, device peaks and kernel cost accounting.
 
 * :func:`trace` — context manager around ``jax.profiler`` writing a
   TensorBoard-compatible trace directory.
-* :func:`linesum_cost` — analytic FLOP/byte model of the line-sum kernel (the
+* :data:`DEVICE_PEAKS` / :func:`device_peaks` — published peak rates of the
+  devices this program measures on, keyed by ``device_kind``. A device that
+  is not in the table is an error, not a default.
+* :func:`linesum_cost` — analytic FLOP/byte model of the plain line sum (the
   framework's hot op), from the static banding plan.
-* :func:`speed_of_light_report` — measured rate vs the roofline implied by
-  the cost model and the chip's peak numbers.
+* :func:`roofline_report` — measured time against the roofline that the
+  cost model and a device's peaks imply.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 
 import numpy as np
 
 __all__ = [
     "trace",
+    "card_name_and_power_limit",
+    "DEVICE_PEAKS",
+    "device_peaks",
     "linesum_cost",
-    "linesum_cost_split",
-    "speed_of_light_report",
-    "split_roofline_report",
-    "CHIP_PEAKS",
+    "roofline_report",
 ]
 
-# (peak f32 vector FLOP/s, HBM bytes/s) per chip generation. The line-sum
-# kernel is pure VPU (elementwise vector) work — the MXU's 394 bf16 TF/s is
-# irrelevant to it. The f32 VPU peak is an engineering estimate:
-# (8 sublanes x 128 lanes) x 4 ALUs x ~1.74 GHz ~= 7.1e12 FLOP/s for v5e
-# (TPU VPUs retire ~4 full-vreg elementwise ops per cycle; public HBM
-# figures: v5e 0.82 TB/s, v5p 2.77 TB/s).
-CHIP_PEAKS = {
-    "v5e": (7.1e12, 0.82e12),
-    "v5p": (8.9e12, 2.77e12),
-    "cpu": (5e10, 5e10),
+# (peak float32 FLOP/s outside the tensor cores, device-memory bytes/s),
+# keyed by jax.Device.device_kind. Source: NVIDIA H100 data sheet, SXM5
+# part, dense rates (67 TFLOP/s FP32, 3.35 TB/s HBM3), at the full 700 W
+# power limit; a card set below it cannot hold its top clock.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": (67e12, 3.35e12),
 }
 
 # FLOPs of one Voigt profile evaluation in the branch-free Humlicek kernel:
-# all four regions computed per lane (region arithmetic ~ 130 flops) plus
-# scaling/masking (~25) — an engineering estimate used for roofline context.
+# all four regions computed per element (region arithmetic ~ 130 flops) plus
+# scaling/masking (~25) — an engineering estimate for roofline context.
 VOIGT_FLOPS_PER_EVAL = 155.0
 
-# Split-kernel per-eval costs (ops/linesum_pallas.py, sublane-grouped
-# strategy). The FAR tile is the slimmed region-1 quotient
-# k2*(c1+m)/((c1-m)^2 + c2*D): 5 vreg-ops + 1 divide per state per element,
-# with D = dnu^2 and the two-float dnu/mask arithmetic shared across the 16
-# states (~6 ops / 16). Counting the divide as ~4 ALU-equivalents and the
-# select+accumulate as 2: ~12 FLOP-equivalents per dense far eval. The NEAR
-# tile runs the full w4 Faddeeva (~155, as above).
-FAR_FLOPS_PER_EVAL = 12.0
-NEAR_FLOPS_PER_EVAL = 155.0
+
+def device_peaks(device_kind: str) -> tuple[float, float]:
+    """(peak FLOP/s, peak bytes/s) of a device kind; unknown kinds raise."""
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add it to "
+            "clearsky_tpu.utils.profiling.DEVICE_PEAKS with its source"
+        ) from None
+
+
+def card_name_and_power_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    (one line per card), the record every device number is kept with."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip()
 
 
 @contextlib.contextmanager
@@ -72,8 +80,8 @@ def trace(logdir: str):
 class KernelCost:
     flops: float          # dense FLOPs actually executed
     useful_flops: float   # FLOPs on in-window (physically counted) pairs
-    bytes_moved: float    # HBM traffic (inputs + outputs, gathered slabs)
-    evals: int            # in-window line evaluations (the north-star count)
+    bytes_moved: float    # device-memory traffic (inputs + outputs)
+    evals: int            # in-window line evaluations
 
     @property
     def intensity(self) -> float:
@@ -81,24 +89,24 @@ class KernelCost:
         return self.flops / max(self.bytes_moved, 1.0)
 
 
-def linesum_cost(plan, n_states: int, chunk: int = 8, dtype_bytes: int = 4) -> KernelCost:
-    """Cost model of ``sigma_from_lines_pallas`` for a given banding plan.
+def linesum_cost(plan, n_states: int, chunk: int | None = None,
+                 dtype_bytes: int = 4) -> KernelCost:
+    """Cost model of a line sum that walks each block's own window.
 
-    Dense work walks ceil(count/chunk)*chunk lines per block (dynamic trip
-    count); useful work is the in-window pair count. ``chunk`` is the line
-    granularity: 8 for the default sublane-grouped strategy, 128 for the
-    lane-major variants. Bytes: the gathered per-block line slabs (4 arrays)
-    x states for (S, alpha, gamma) + shared line positions + the output
-    stripe.
+    Dense work walks ceil(count/chunk)*chunk lines per block (the GPU
+    kernel's per-block trip count; ``chunk`` defaults to
+    ``ops.linesum_gpu.CHUNK``); useful work
+    is the in-window pair count. Bytes: the per-block line slabs for
+    (S, alpha, gamma) per state plus the shared line positions, and the
+    output stripe.
     """
+    if chunk is None:
+        from ..ops.linesum_gpu import CHUNK as chunk
     counts = np.asarray(plan.count, dtype=np.int64)
     walked = np.ceil(counts / chunk).astype(np.int64) * chunk
     dense_pairs = int(walked.sum()) * plan.block * n_states
-    # block-granular in-window pair count (each block evaluates its whole slab
-    # of candidate lines for each of its grid points)
     useful_pairs = int(counts.sum()) * plan.block * n_states
-    slab = int(plan.slab)
-    bytes_slabs = plan.n_blocks * slab * dtype_bytes * (1 + 3 * n_states)
+    bytes_slabs = int(walked.sum()) * dtype_bytes * (2 + 3 * n_states)
     bytes_out = plan.n_blocks * plan.block * n_states * dtype_bytes
     return KernelCost(
         flops=dense_pairs * VOIGT_FLOPS_PER_EVAL,
@@ -108,154 +116,14 @@ def linesum_cost(plan, n_states: int, chunk: int = 8, dtype_bytes: int = 4) -> K
     )
 
 
-def linesum_cost_split(
-    plan,
-    nu_lines,
-    d_near: float,
-    n_states: int,
-    lgroup: int = 8,
-    dtype_bytes: int = 4,
-    stencil_k: int | None = None,
-) -> "SplitKernelCost":
-    """Cost model of the near/far-split sublane-grouped kernel (the default
-    TPU strategy in ``ops.linesum_pallas``).
+def roofline_report(cost: KernelCost, seconds: float, device_kind: str) -> dict:
+    """Roofline context for a measured run of ``cost`` on ``device_kind``.
 
-    The FAR sweep walks the WHOLE slab in ``lgroup``-line groups with the
-    slimmed region-1 profile (near elements masked but still executed); the
-    NEAR sweep walks only the [start2, cnt2) sub-slab of lines within
-    ``d_near`` of the block, with the full w4 profile. ``d_near`` is the
-    kernel's 15*max(alpha) (clamped to cut) — pass the value the dispatcher
-    computed, or recompute it from the states.
-
-    Bytes: the VMEM-resident kernel reads the line pack from HBM once per
-    call (2 shared + 7 per-state lanes for split voigt), plus the grid and
-    the output stripe.
+    ``fraction_of_roof`` is achieved model FLOP/s over the binding roof
+    (compute vs bandwidth at the kernel's arithmetic intensity). The per-eval
+    op count is an engineering estimate, so treat the fraction as a scale.
     """
-    nu_lines = np.asarray(nu_lines, dtype=np.float64)
-    counts = np.asarray(plan.count, dtype=np.int64)
-    walked_far = (np.ceil(counts / lgroup) * lgroup).astype(np.int64)
-    B = plan.block
-    dense_far = int(walked_far.sum()) * B * n_states
-    if stencil_k:
-        # stencil-near strategy (auto-routed for voigt): the near w4 work
-        # is an XLA pass over each line's 2K-point window — no in-kernel
-        # near sweep, no block-span amplification
-        dense_near = len(nu_lines) * 2 * int(stencil_k) * n_states
-    else:
-        lo2 = np.searchsorted(nu_lines, plan.nu_blocks[:, 0] - d_near,
-                              side="left")
-        hi2 = np.searchsorted(nu_lines, plan.nu_blocks[:, -1] + d_near,
-                              side="right")
-        cnt2 = (hi2 - lo2).astype(np.int64)
-        walked_near = (np.ceil(cnt2 / lgroup) * lgroup).astype(np.int64)
-        dense_near = int(walked_near.sum()) * B * n_states
-    # exact per-point useful pair count (the north-star eval definition)
-    lo = np.searchsorted(nu_lines, plan.nu - plan.cut, side="left")
-    hi = np.searchsorted(nu_lines, plan.nu + plan.cut, side="right")
-    useful = int((hi - lo).sum()) * n_states
-    n_lines = len(nu_lines)
-    bytes_pack = n_lines * (2 + 7 * n_states) * dtype_bytes
-    bytes_out = plan.n_blocks * B * n_states * dtype_bytes
-    bytes_grid = 2 * plan.n_blocks * B * dtype_bytes
-    flops = dense_far * FAR_FLOPS_PER_EVAL + dense_near * NEAR_FLOPS_PER_EVAL
-    return SplitKernelCost(
-        flops=float(flops),
-        useful_flops=float(useful * FAR_FLOPS_PER_EVAL),
-        bytes_moved=float(bytes_pack + bytes_out + bytes_grid),
-        evals=useful,
-        dense_far=dense_far,
-        dense_near=dense_near,
-    )
-
-
-@dataclasses.dataclass(frozen=True)
-class SplitKernelCost(KernelCost):
-    dense_far: int = 0    # dense far-tile evals actually executed
-    dense_near: int = 0   # dense near-tile (full w4) evals executed
-
-
-def linesum_cost_coarse(
-    plan,
-    nu_lines,
-    params,
-    n_states: int,
-    lgroup: int = 8,
-    dtype_bytes: int = 4,
-    stencil_k: int | None = None,
-) -> SplitKernelCost:
-    """Cost model of the coarse-grid far-field strategy (strategy='coarse',
-    auto-routed for phco2 on dense grids; ops/linesum_pallas.py:712-1005).
-
-    Work decomposes into four parts, sized from the split geometry
-    (d_far, h, n_cc) that ``_coarse_far_params`` computed for this plan:
-      * fine pass: per-point line work within |dnu| <= 2*d_far,
-      * annulus pass: the thin outer roll that keeps the reference's hard
-        truncation at ``cut`` exact, width w_roll on each side,
-      * coarse sweep: every line over coarse points within ``cut`` at
-        spacing h (the dbar/h compression is the strategy's whole point),
-      * interpolation: ~12 FLOP/point/state cubic in sqrt-sigma space.
-    All line-profile work uses the slimmed region-1 quotient
-    (FAR_FLOPS_PER_EVAL); the near-core w4 correction follows the stencil
-    model when the plan carries stencil geometry. Counts are engineering
-    estimates (group-rounding inside blocks is not modeled) — treat the
-    resulting fraction as a scale, as with the other cost models.
-    """
-    from ..ops.linesum_pallas import W_ROLL_CELLS
-
-    nu = np.asarray(plan.nu, dtype=np.float64)
-    nu_lines = np.sort(np.asarray(nu_lines, dtype=np.float64))
-    d_far, h, n_cc, _ = params
-    cut = float(plan.cut)
-    w_roll = W_ROLL_CELLS * h
-
-    def pairs_within(dist):
-        lo = np.searchsorted(nu, nu_lines - dist, side="left")
-        hi = np.searchsorted(nu, nu_lines + dist, side="right")
-        return int((hi - lo).sum())
-
-    fine_pairs = pairs_within(2.0 * d_far) * n_states
-    ann_pairs = (pairs_within(cut) - pairs_within(cut - w_roll)) * n_states
-    coarse_pairs = int(len(nu_lines) * min(2.0 * cut, nu[-1] - nu[0]) / h
-                       ) * n_states
-    if stencil_k:
-        near_pairs = len(nu_lines) * 2 * int(stencil_k) * n_states
-    else:
-        d_near = min(cut, 2.0 * d_far)
-        near_pairs = pairs_within(d_near) * n_states
-    interp_flops = 12.0 * plan.n_nu * n_states
-
-    lo = np.searchsorted(nu_lines, nu - cut, side="left")
-    hi = np.searchsorted(nu_lines, nu + cut, side="right")
-    useful = int((hi - lo).sum()) * n_states
-
-    n_lines = len(nu_lines)
-    bytes_pack = n_lines * (2 + 7 * n_states) * dtype_bytes
-    bytes_out = plan.n_blocks * plan.block * n_states * dtype_bytes
-    bytes_grid = 2 * plan.n_blocks * plan.block * dtype_bytes
-    bytes_coarse = 3 * n_cc * n_states * dtype_bytes  # coarse field r/w + interp read
-    dense_far = fine_pairs + ann_pairs + coarse_pairs
-    return SplitKernelCost(
-        flops=dense_far * FAR_FLOPS_PER_EVAL
-        + near_pairs * NEAR_FLOPS_PER_EVAL
-        + interp_flops,
-        useful_flops=float(useful * FAR_FLOPS_PER_EVAL),
-        bytes_moved=float(bytes_pack + bytes_out + bytes_grid + bytes_coarse),
-        evals=useful,
-        dense_far=dense_far,
-        dense_near=near_pairs,
-    )
-
-
-def coarse_roofline_report(
-    plan, nu_lines, params, n_states: int, seconds: float,
-    chip: str = "v5e", lgroup: int = 8, stencil_k: int | None = None,
-) -> dict:
-    """Roofline context for a measured coarse-strategy run (same contract as
-    :func:`split_roofline_report`: the fraction is a scale, not a
-    percentage-point claim)."""
-    cost = linesum_cost_coarse(plan, nu_lines, params, n_states,
-                               lgroup=lgroup, stencil_k=stencil_k)
-    peak_flops, peak_bw = CHIP_PEAKS[chip]
+    peak_flops, peak_bw = device_peaks(device_kind)
     achieved = cost.flops / seconds
     roof = min(peak_flops, peak_bw * cost.intensity)
     return {
@@ -263,62 +131,7 @@ def coarse_roofline_report(
         "peak_flops": peak_flops,
         "intensity_flop_per_byte": cost.intensity,
         "binding_roof_flops": roof,
+        "bound": "compute" if roof == peak_flops else "memory",
         "fraction_of_roof": achieved / roof,
-        "dense_evals_per_s": (cost.dense_far + cost.dense_near) / seconds,
-        "useful_evals_per_s": cost.evals / seconds,
-        "useful_over_dense": cost.evals / max(cost.dense_far + cost.dense_near, 1),
-    }
-
-
-def split_roofline_report(
-    plan, nu_lines, d_near: float, n_states: int, seconds: float,
-    chip: str = "v5e", lgroup: int = 8, stencil_k: int | None = None,
-) -> dict:
-    """Roofline context for the near/far-split kernel from a measured run.
-
-    ``fraction_of_roof`` is achieved model-FLOP/s over the binding roof
-    (compute vs bandwidth at the kernel's arithmetic intensity). Because the
-    per-eval op counts are engineering estimates, treat the fraction as a
-    scale ("is there 2x on the table?"), not a percentage-point claim.
-    """
-    cost = linesum_cost_split(plan, nu_lines, d_near, n_states, lgroup=lgroup,
-                              stencil_k=stencil_k)
-    peak_flops, peak_bw = CHIP_PEAKS[chip]
-    achieved = cost.flops / seconds
-    roof = min(peak_flops, peak_bw * cost.intensity)
-    return {
-        "achieved_flops": achieved,
-        "peak_flops": peak_flops,
-        "intensity_flop_per_byte": cost.intensity,
-        "binding_roof_flops": roof,
-        "fraction_of_roof": achieved / roof,
-        "dense_far_evals_per_s": cost.dense_far / seconds,
-        "dense_near_evals_per_s": cost.dense_near / seconds,
-        "useful_evals_per_s": cost.evals / seconds,
-        "useful_over_dense": cost.evals / max(cost.dense_far + cost.dense_near, 1),
-    }
-
-
-def speed_of_light_report(
-    plan, n_states: int, seconds: float, chip: str = "v5e", chunk: int = 8
-) -> dict:
-    """Roofline context for a measured line-sum run.
-
-    Returns achieved FLOP/s, the compute- and bandwidth-roofs, and the
-    fraction of the binding roof achieved. ``chunk`` is the kernel's line
-    granularity (8 for the default sublane-grouped strategy, 128 for the
-    lane-major variant) — it sets the dense-work model.
-    """
-    cost = linesum_cost(plan, n_states, chunk=chunk)
-    peak_flops, peak_bw = CHIP_PEAKS[chip]
-    achieved = cost.flops / seconds
-    roof = min(peak_flops, peak_bw * cost.intensity)
-    return {
-        "achieved_flops": achieved,
-        "peak_flops": peak_flops,
-        "intensity_flop_per_byte": cost.intensity,
-        "binding_roof_flops": roof,
-        "fraction_of_roof": achieved / roof,
-        "dense_evals_per_s": cost.flops / VOIGT_FLOPS_PER_EVAL / seconds,
         "useful_evals_per_s": cost.evals / seconds,
     }

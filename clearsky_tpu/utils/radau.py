@@ -3,7 +3,7 @@
 The reference's second flux engine integrates a scalar ODE per wavenumber with
 an adaptive 5th-order Radau IIA method (ScalarRadau, used at ClearSky.jl
 ``src/core/radau.jl:90,130,177`` and ``src/atmospherics.jl:87,161,441``). The
-TPU-native inversion: instead of one adaptive integration per wavenumber on
+Array-first inversion: instead of one adaptive integration per wavenumber on
 its own thread, ALL lanes (wavenumber x stream) march together inside one
 ``lax.while_loop``, each lane carrying its own position, step size, and error
 controller — dense masked arithmetic instead of divergent control flow, so
@@ -14,7 +14,7 @@ construction scipy's ``Radau`` implements): 3-stage Radau IIA collocation,
 simplified Newton on the stage system solved in the eigenbasis of the Butcher
 matrix (one real + one complex-conjugate eigenvalue; for scalar lanes the
 "LU solves" collapse to scalar divisions, the complex one written in real
-arithmetic — TPUs have no complex VPU lanes), the 3rd-order embedded error
+arithmetic, no complex dtype), the 3rd-order embedded error
 estimate with the stiffness-damped rejection refinement, and the predictive
 two-step (Gustafsson) step-size controller.
 

@@ -60,6 +60,9 @@ def build(radmul, nnu):
 
 
 def main():
+    from clearsky_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--nnu", type=int, default=1024)

@@ -5,7 +5,7 @@ to radiative-convective equilibrium with cross-section refresh and dry
 convective adjustment, and prints the equilibrium diagnostics.
 
 Usage: python scripts/rce_demo.py [--steps N] [--nnu N]
-Works on TPU (fast) or CPU (set JAX_PLATFORMS=cpu; slower).
+Works on an NVIDIA GPU (fast) or the CPU (set JAX_PLATFORMS=cpu; slower).
 """
 
 import argparse
@@ -20,6 +20,9 @@ import jax.numpy as jnp
 
 
 def main():
+    from clearsky_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--nnu", type=int, default=4096)

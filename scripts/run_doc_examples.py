@@ -89,6 +89,9 @@ def main(paths):
         # (mirrors tests/conftest.py's fixtures_dir skip)
         print(f"skip: fixtures not available at {FIXTURES}")
         return 0
+    from clearsky_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     paths = paths or sorted(glob.glob(os.path.join(ROOT, "docs", "*.md")))
     failures = 0
     with tempfile.TemporaryDirectory() as td:

@@ -72,16 +72,13 @@ def weak_scaling_arithmetic(n_nu=524288, n_shards=8, maxlines=None):
     step at ``n_nu`` wavenumbers and sums the cross-shard payload bytes.
     The design folds the trapz weights into pointwise multiplies, so the
     only collective reduces [n_levels]-shaped integrals — the payload is
-    INDEPENDENT of n_nu, while per-chip compute grows linearly with the
-    shard width n_nu/k. Combined with the measured per-chip compute times
-    (BASELINE.md: direct-mode 2^19 flux 53.5 ms/call round 3, full 16k RCE
-    step 1.23 ms), the efficiency model
+    INDEPENDENT of n_nu, while per-device compute grows linearly with the
+    shard width n_nu/k. The efficiency model is
 
         eff(k) = t_compute / (t_compute + t_latency + bytes/bw)
 
-    is printed for ICI (v5e ~1 us, ~45 GB/s effective all-reduce) and DCN
-    (~100 us, ~25 GB/s) parameter classes. This is the honest substitute
-    for pod hardware this environment cannot provide (judge round-3 #6b).
+    and the communication term is printed for NVLink (450 GB/s each way);
+    t_compute comes from a measurement on the card.
     """
     import re
 
@@ -124,27 +121,20 @@ def weak_scaling_arithmetic(n_nu=524288, n_shards=8, maxlines=None):
     print(f"cross-shard payload: {payload} bytes/step (nu-independent by "
           "construction: trapz is folded into pointwise weights)")
 
-    # measured per-chip compute anchors (BASELINE.md round 3, real v5e):
-    anchors = {
-        "direct-mode 2^19 flux call (53.5 ms single-chip)": 53.5e-3,
-        "table-mode 2^19 flux call (11.4 ms single-chip)": 11.4e-3,
-        "full 16k-point LBL RCE step (1.23 ms single-chip)": 1.23e-3,
-    }
-    nets = {"ICI (v5e, ~1 us, 45 GB/s)": (1e-6, 45e9),
-            "DCN (~100 us, 25 GB/s)": (100e-6, 25e9)}
-    print("\nweak scaling (constant per-chip width => per-chip time fixed):")
-    for aname, t1 in anchors.items():
-        for nname, (lat, bw) in nets.items():
-            t_comm = lat + payload / bw
-            eff = t1 / (t1 + t_comm)
-            print(f"  {aname:52s} over {nname:28s} eff = {eff:7.4f}")
-    print("\n=> the claim is latency-bound, not bandwidth-bound: even the "
-          "DCN floor costs ~100 us against >=1.2 ms of per-chip work, "
-          ">=92% efficiency; on ICI the model gives >99.9%.")
+    # the collective's cost per step is one latency plus payload/bandwidth;
+    # per-device compute is not known here (measure it on the card), so
+    # report the communication floor against NVLink (450 GB/s each way)
+    lat, bw = 10e-6, 450e9
+    print(f"\ncommunication per step over NVLink (~{lat * 1e6:.0f} us latency): "
+          f"{(lat + payload / bw) * 1e6:.2f} us — latency-bound, independent "
+          "of the spectral width")
     return n_ar, payload
 
 
 def main():
+    from clearsky_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from clearsky_tpu import GrayGas, RCM
     from clearsky_tpu.absorption.gas import DirectGas
     from clearsky_tpu.spectra.lines import SpectralLines

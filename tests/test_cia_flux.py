@@ -77,8 +77,8 @@ def test_cia_xsec_amagat_conversion(stack):
 
 def test_cia_sigma_finite_in_float32(fixtures_dir):
     """f32 regression: the amagat conversion must not touch Lo^2 = 7.2e38
-    (overflows float32 max 3.4e38 -> inf -> NaN through the whole CIA path on
-    TPU, found driving configs 2-3 at production scale). The f64 suite cannot
+    (overflows float32 max 3.4e38 -> inf -> NaN through the whole CIA path in
+    float32, found driving configs 2-3 at production scale). The f64 suite cannot
     see this, so the test forces an f32 pytree."""
     import jax
     from clearsky_tpu.spectra.lines import SpectralLines

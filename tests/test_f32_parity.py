@@ -1,10 +1,10 @@
 """Cross-configuration float32-vs-float64 pipeline parity.
 
-The TPU runs everything in float32, and the CPU suite runs in float64 — so
-a whole class of f32-only hazards is invisible to ordinary tests. Round 4
-found two silent ones (CIA coefficients below the f32 normal range flushing
-to zero — 24 W/m^2 of missing downwelling; bf16-truncated matmuls on
-ln-space tables — a 20-75% sigma error class). This suite runs the SAME
+The GPU runs everything in float32, and the CPU suite runs in float64 — so
+a whole class of f32-only hazards is invisible to ordinary tests. Two silent
+ones were found this way (CIA coefficients below the f32 normal range
+flushing to zero — 24 W/m^2 of missing downwelling; reduced-precision
+matmuls on ln-space tables — a 20-75% sigma error class). This suite runs the SAME
 small flux configurations in a true-f32 subprocess (the suite itself is
 x64) and in-process f64, and asserts band-integrated and pointwise
 agreement at the f32-roundoff class. A new physics path that silently

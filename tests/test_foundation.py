@@ -163,12 +163,12 @@ def test_logrange_endpoints():
 
 
 def test_planck_jvp_float32_finite():
-    """float32 Planck derivatives must be finite everywhere (TPU regression).
+    """float32 Planck derivatives must be finite everywhere (f32 regression).
 
     The exponent must be formed as C2*nu/T with the radiation constant
     pre-folded: spelling it h*c*nu/(k*T) creates the f32 intermediate
     (kT)~2e-21 whose square underflows to 0 inside the division JVP and NaNs
-    every tangent of the RCM Jacobian on TPU (found on hardware; invisible in
+    every tangent of the RCM Jacobian in float32 (found on hardware; invisible in
     this f64 suite without the explicit f32 cast below).
     """
     import jax

@@ -112,7 +112,7 @@ def _collective_counts(hlo_text):
     return Counter(ops)
 
 
-def test_sharded_step_compiles_to_one_collective(fixtures_dir):
+def test_sharded_step_compiles_to_one_collective():
     """The 'one psum per step' claim, checked against the compiled HLO.
 
     The design folds trapz into pointwise weights so the spectral integral is
@@ -122,9 +122,9 @@ def test_sharded_step_compiles_to_one_collective(fixtures_dir):
     on the flagship line-by-line path (DirectGas -> nu-sharded line slabs).
     """
     from clearsky_tpu.absorption.gas import DirectGas
-    from clearsky_tpu.spectra.lines import SpectralLines
+    from clearsky_tpu.spectra.synthetic import synthetic_lines
 
-    lines = SpectralLines.from_par(f"{fixtures_dir}/CO2.par", maxlines=200)
+    lines = synthetic_lines("CO2", seed=0, maxlines=200)
     nu_l = np.asarray(lines.nu)
     nu = np.linspace(max(nu_l.min() - 25.0, 1.0), nu_l.max() + 25.0, 64)
     gas = DirectGas.from_lines(lines, 0.9, nu)
@@ -167,58 +167,14 @@ def test_batched_columns_on_mesh():
     )
 
 
-def test_march_kernel_under_gspmd_mesh():
-    """The production march-kernel x sharded-mesh composition (VERDICT r4
-    missing #1/#2): the Pallas march, wrapped in custom_partitioning with the
-    shard-along-nu rule, must lower and execute under GSPMD auto-partitioning
-    and reproduce the scan-march physics. Interpret mode stands in for the
-    TPU kernel on the CPU mesh (same kernel code path, same partitioning)."""
-    from clearsky_tpu.rt.discretized import march_kernel_mode
-
-    r = make_rcm()
-    mesh = spectral_mesh()
-    F_ref = rcm_mod.radiate_state(r)  # scan path (mode auto on CPU)
-    with march_kernel_mode("interpret"):
-        F_sh = sharded_radiate(mesh, r)
-    np.testing.assert_allclose(
-        np.asarray(F_sh.M_up), np.asarray(F_ref.M_up), rtol=1e-11
-    )
-    np.testing.assert_allclose(
-        np.asarray(F_sh.F_net), np.asarray(F_ref.F_net), rtol=1e-11
-    )
-
-
-def test_march_kernel_under_shard_map():
-    """The kernel inside an explicit shard_map heating program (shard-local
-    operands) on the 8-device mesh matches the single-device scan heating."""
-    from clearsky_tpu.rt.discretized import march_kernel_mode
-
-    r = make_rcm()
-    mesh = spectral_mesh()
-    H_ref = np.asarray(rcm_mod.heating(r))
-    with march_kernel_mode("interpret"):
-        hfn = make_sharded_heating(mesh, r)
-        H_sh = np.asarray(hfn(r.T))
-    np.testing.assert_allclose(H_sh, H_ref, rtol=1e-9)
-
-
-def test_march_kernel_gspmd_single_collective():
-    """With the kernel partitioned along nu, the sharded radiate program must
-    not gain hidden collectives: the kernel's custom_partitioning rule keeps
-    every operand shard-local (no all-gather of the spectrum)."""
-    from clearsky_tpu.rt.discretized import march_kernel_mode
-    from clearsky_tpu.parallel.mesh import shard_spectral as _ss
-
+def test_gspmd_radiate_gathers_no_spectrum():
+    """The GSPMD-sharded radiate program keeps every per-wavenumber operand
+    shard-local: no all-gather or all-to-all of the spectrum (the scan march
+    and the line sum are per-wavenumber, only the integral reduces)."""
     r = make_rcm()
     mesh = spectral_mesh()
     r_s = shard_spectral(r, mesh, N_NU)
-    with march_kernel_mode("interpret"):
-        txt = (
-            jax.jit(rcm_mod.radiate_state)
-            .lower(r_s)
-            .compile()
-            .as_text()
-        )
+    txt = jax.jit(rcm_mod.radiate_state).lower(r_s).compile().as_text()
     counts = _collective_counts(txt)
     assert counts.get("all-gather", 0) == 0, counts
     assert counts.get("all-to-all", 0) == 0, counts

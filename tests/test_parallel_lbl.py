@@ -2,7 +2,7 @@
 
 The reference's parallel axis exists to scale *real-gas* (line-by-line) work —
 threads over wavenumber with the moving line window (ClearSky.jl
-``fluxes.jl:270``, ``line_shapes.jl:10-22``). These tests prove the TPU
+``fluxes.jl:270``, ``line_shapes.jl:10-22``). These tests prove the device
 equivalent: per-shard line slabs with cut-width halos (``absorption.sharded``)
 reproduce the single-device DirectGas/MultiGas/CIA physics under both
 ``shard_map`` and GSPMD to reduction-order tolerance.
@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from clearsky_tpu.spectra.lines import SpectralLines
+from clearsky_tpu.spectra.synthetic import synthetic_lines
 from clearsky_tpu.absorption.gas import DirectGas, MultiGas
 from clearsky_tpu.absorption.cia import CIATables
 from clearsky_tpu.absorption.sharded import ShardedLineGas, shard_line_gas
@@ -34,13 +34,13 @@ N_NU = 512
 
 
 @pytest.fixture(scope="module")
-def co2_lines(fixtures_dir):
-    return SpectralLines.from_par(f"{fixtures_dir}/CO2.par", maxlines=300)
+def co2_lines():
+    return synthetic_lines("CO2", seed=0, maxlines=300)
 
 
 @pytest.fixture(scope="module")
-def h2o_lines(fixtures_dir):
-    return SpectralLines.from_par(f"{fixtures_dir}/H2O.par", maxlines=200)
+def h2o_lines():
+    return synthetic_lines("H2O", seed=0, maxlines=200)
 
 
 def _grid(lines, n=N_NU):
@@ -87,16 +87,16 @@ def test_sharded_gas_lineless_shards(co2_lines):
 
 def test_sharded_plan_keeps_float64_grid(co2_lines):
     # shard_line_gas must rebuild per-shard plans from the PLAN's float64
-    # grid, not from gas.nu — which is float32 whenever x64 is off (always
-    # on TPU). Regression: with an f32 gas.nu the two-float block positions
+    # grid, not from gas.nu — which is float32 whenever x64 is off (as on
+    # the GPU). Regression: with an f32 gas.nu the two-float block positions
     # (hi + lo) previously reconstructed the f32-ROUNDED grid (lo ~ 0,
     # ~5e-4 cm^-1 position error at 1e4 cm^-1), flipping line membership at
-    # the cut boundary and biasing deep-wing sigma by O(10%) on TPU.
+    # the cut boundary and biasing deep-wing sigma by O(10%).
     import dataclasses as dc
 
     nu = _grid(co2_lines)
     gas = DirectGas.from_lines(co2_lines, 0.9, nu)
-    gas32 = dc.replace(gas, nu=jnp.asarray(gas.nu, jnp.float32))  # TPU-like
+    gas32 = dc.replace(gas, nu=jnp.asarray(gas.nu, jnp.float32))  # x64 off
     sg = shard_line_gas(gas32, 8)
     # in the f64 suite the stacked nu_blocks hold the full-precision source
     # grid the two-float (hi, lo) pair is derived from — it must be the
@@ -192,8 +192,8 @@ def test_sharded_gas_in_batched_columns(co2_lines):
 
 def test_sharded_gas_is_differentiable(co2_lines):
     """jacfwd through a sharded line-by-line gas must match the unsharded
-    gas (on TPU this exercises the device-plan custom JVP; on CPU the oracle
-    dispatch — either way the sharded path must be differentiable)."""
+    gas (on the GPU this exercises the device-plan custom JVP; on CPU the
+    plain path — either way the sharded path must be differentiable)."""
     nu = _grid(co2_lines)
     gas = DirectGas.from_lines(co2_lines, 0.9, nu)
     sg = shard_line_gas(gas, 4)

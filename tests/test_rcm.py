@@ -128,8 +128,8 @@ def test_jacobian_fwd_vs_fd_directgas(fixtures_dir):
 
     The reference's jacobian! works with any absorber
     (ref radiative_convective.jl:153-171); here jax.jacfwd differentiates
-    through the full Voigt line sum (on TPU via the kernel's custom JVP,
-    on CPU via the jnp oracle directly).
+    through the full Voigt line sum (on the GPU via the kernel's custom JVP,
+    on CPU via the plain path directly).
     """
     r = _lbl_rcm(fixtures_dir)
     n = r.n_cells

@@ -80,27 +80,6 @@ def test_sigma_ref_convention_kernel(fixtures_dir):
     np.testing.assert_allclose(sig, expect, rtol=1e-10, atol=expect.max() * 1e-13)
 
 
-def test_pallas_interpret_ref_convention(fixtures_dir):
-    from clearsky_tpu.spectra.lines import SpectralLines
-    from clearsky_tpu.ops.linesum_pallas import sigma_from_lines_pallas
-
-    lines = SpectralLines.from_par(f"{fixtures_dir}/CO2.par", maxlines=80)
-    nu_l = np.asarray(lines.nu)
-    nu = np.linspace(nu_l.min() - 10, nu_l.max() + 10, 512)
-    plan = build_line_window_plan(nu, nu_l, 25.0)
-    T, P = jnp.asarray([260.0]), jnp.asarray([2e4])
-    oracle = np.asarray(
-        sigma_from_lines(plan, lines, T, P, 0.9 * P, shape="voigt_ref")
-    )
-    kern = np.asarray(
-        sigma_from_lines_pallas(
-            plan, lines, T, P, 0.9 * P, shape="voigt_ref", interpret=True
-        )
-    )
-    denom = np.abs(oracle).max()
-    assert np.abs(kern - oracle).max() / denom < 5e-5
-
-
 @pytest.mark.slow
 def test_flux_level_convention_delta(fixtures_dir):
     """Quantify the band-integrated OLR delta between conventions (BASELINE.md)."""
